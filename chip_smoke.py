@@ -6,17 +6,30 @@
 Phases, each fatal on failure (nonzero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     training step's shapes (ABC width, N = 1024 rays x 114 samples =
-     116,736 points) and time both, beside the reckoned bound;
+  3. hold each kernel against its plain PyTorch version on the card, output
+     block by block, and time both at the shapes its path gives it, beside
+     the reckoned bound: the training query and backward at the step's
+     N = 1024 rays x 114 samples = 116,736 points, and the extraction's
+     grid value query at a 128^3 grid pass (2,097,152 points);
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it, train END_ITER steps at full ABC width through
-     `emap_tpu_torch.cli.main(... --mode train)`, check that both kernels
-     launched once per step, that every loss is finite, that the checkpoint
-     reloads, and that the first step's loss and gradients match the plain
-     autograd path from the same state and batch;
+     `emap_tpu_torch.cli.main(... --mode train)` with one validation at the
+     last step, check that the training kernels launched once per step
+     (the forward once more per validation chunk), that every loss is
+     finite, that the three validation images decode at the view's size,
+     that the checkpoint reloads, and that the first step's loss and
+     gradients match the plain autograd path from the same state and batch;
   5. the step on the kernels against the step on the plain autograd path,
-     and a profiler breakdown of two steps by kernel.
+     and a profiler breakdown of two steps by kernel;
+  6. regress the ABC-width field onto the analytic UDF of the cube's 12
+     edges, save it as the run's checkpoint and run
+     `emap_tpu_torch.cli.main(... --mode extract_edge)` with the ABC conf's
+     edge_extraction block unchanged; check that the extraction kernels
+     launched as often as the candidate counts reckon, that the four result
+     files exist, and that the fitted edges lie on the cube's edges; then
+     hold the sliced value-and-gradient query against its plain version at
+     the largest line-direction call of that run (a feature batch's live
+     candidates x sampling_N points, launched over slices of SLICE_CAP).
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script fails.
@@ -51,6 +64,12 @@ KERNEL_RTOL = 1e-4
 # holds its fused kernels to.
 STEP_GRAD_RTOL = 3e-4
 STEP_LOSS_RTOL = 1e-5
+GRID_N = 128 ** 3  # confs/ABC.conf edge_extraction.resolution
+# Phase 6's fixture: Adam steps of the field regression onto the cube's
+# edge UDF, and the bar for the fitted edges: under one voxel of the
+# 128^3 grid from the true edges (median).
+REGRESS_STEPS = 1500
+EDGE_MEDIAN_MAX = 2.0 / 127
 
 
 def smi_line() -> str:
@@ -60,10 +79,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int) -> tuple:
+    """(ms a call over `reps` calls, the output of a first, untimed call)."""
     import torch
 
-    fn()
+    out = fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -72,7 +92,7 @@ def time_ms(fn, reps: int) -> float:
         fn()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / reps, out
 
 
 def errors(got: dict, want: dict) -> tuple:
@@ -100,27 +120,94 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def kernel_phase(ucfg, n: int) -> list:
-    """Each kernel against its plain version at the step's shapes."""
+def sliced_plain(x, w, b, ucfg):
+    """The plain value-and-gradient over the slicing wrapper's slices: the
+    same function on the same inputs, with its residuals held for one
+    slice at a time."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query
+
+    cap = mlp_query.SLICE_CAP
+    parts = [mlp_query.value_and_grad_plain(x[:, s: s + cap], w, b, ucfg)
+             for s in range(0, x.shape[1], cap)]
+    return (torch.cat([u for u, _ in parts]),
+            torch.cat([g for _, g in parts], dim=1))
+
+
+def raw_points(gen, count):
+    import torch
+
+    x = torch.zeros(8, count, device="cuda")
+    x[:3] = torch.rand(3, count, generator=gen, device="cuda") * 2.0 - 1.0
+    return x
+
+
+def query_blocks(out):
+    udf, grad = out
+    return {"udf": udf, "grad": grad}
+
+
+def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
+               nbytes, flops) -> dict:
+    """One kernel against its plain version on the same inputs, block by
+    block, both timed on those inputs, beside the bound for that work."""
+    import torch
+
+    ms, got = time_ms(lambda: kern(*args, ucfg), 3)
+    plain_ms, want = time_ms(lambda: plain(*args, ucfg), 2)
+    got, want = blocks(got), blocks(want)
+    abs_err, rel_err, worst = errors(got, want)
+    t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    print(f"kernel {name}: max abs err {abs_err:.3e}, max rel err "
+          f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
+          f"{KERNEL_RTOL:g}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e6:.1f} MB), N={args[0].shape[1]}", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"{name} gave non-finite values")
+    check(rel_err <= KERNEL_RTOL, f"{name} disagrees with its plain "
+          f"version: max rel err {rel_err:.3e} in block {worst}")
+    return {
+        "name": name, "route": "cuda", "source": src,
+        "replaces": replaces, "launches": 0, "max_abs_err": abs_err,
+        "max_rel_err": rel_err, "worst_block": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "n": args[0].shape[1],
+    }
+
+
+def packed_weights(ucfg):
     import torch
 
     from emap_tpu_torch.fields.udf import init_udf_params
-    from emap_tpu_torch.kernels import mlp_query, mlp_train
+    from emap_tpu_torch.kernels import mlp_query
 
     params = init_udf_params(torch.Generator().manual_seed(0), ucfg,
                              device="cuda")
     w, b = mlp_query.pack_weights(params, ucfg)
-    w, b = w.contiguous(), b.contiguous()
+    return w.contiguous(), b.contiguous()
+
+
+def kernel_phase(ucfg, n: int) -> list:
+    """The training kernels at the step's shape and the grid value kernel
+    at a grid pass, each against its plain version."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query, mlp_train
+
+    w, b = packed_weights(ucfg)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.zeros(8, n, device="cuda")
-    x[:3] = torch.rand(3, n, generator=gen, device="cuda") * 2.0 - 1.0
+    x = raw_points(gen, n)
     ubar = torch.randn(1, n, generator=gen, device="cuda")
     gbar = torch.zeros(8, n, device="cuda")
     gbar[:3] = torch.randn(3, n, generator=gen, device="cuda")
+    grid_x = raw_points(gen, GRID_N)
 
-    def query_blocks(out):
-        udf, grad = out
-        return {"udf": udf, "grad": grad}
+    def value_blocks(out):
+        return {"udf": out}
 
     def bwd_blocks(out):
         layers = mlp_query.unpack_weights(*out, ucfg)
@@ -129,50 +216,46 @@ def kernel_phase(ucfg, n: int) -> list:
 
     f32 = 4
     pack_bytes = f32 * (w.numel() + b.numel())
-    cases = [
-        ("mlp_value_and_grad", mlp_query.value_and_grad,
-         mlp_query.value_and_grad_plain, query_blocks, (x, w, b),
-         "emap_tpu_torch/csrc/mlp_query.cu",
-         "emap_tpu/kernels/mlp_query.py:363",
-         f32 * (8 * n + n + 8 * n) + pack_bytes,
-         mlp_query.query_flops(ucfg) * n),
-        ("mlp_train_bwd", mlp_train.train_bwd, mlp_train.train_bwd_plain,
-         bwd_blocks, (x, w, b, ubar, gbar),
-         "emap_tpu_torch/csrc/mlp_train.cu",
-         "emap_tpu/kernels/mlp_train.py:417",
-         f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
-         mlp_train.train_bwd_flops(ucfg) * n),
+    return [
+        kernel_row("mlp_value_and_grad", mlp_query.value_and_grad,
+                   mlp_query.value_and_grad_plain, query_blocks, (x, w, b),
+                   ucfg, "emap_tpu_torch/csrc/mlp_query.cu",
+                   "emap_tpu/kernels/mlp_query.py:363",
+                   f32 * (8 * n + n + 8 * n) + pack_bytes,
+                   mlp_query.query_flops(ucfg) * n),
+        kernel_row("mlp_train_bwd", mlp_train.train_bwd,
+                   mlp_train.train_bwd_plain, bwd_blocks,
+                   (x, w, b, ubar, gbar), ucfg,
+                   "emap_tpu_torch/csrc/mlp_train.cu",
+                   "emap_tpu/kernels/mlp_train.py:417",
+                   f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
+                   mlp_train.train_bwd_flops(ucfg) * n),
+        kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
+                   value_blocks, (grid_x, w, b), ucfg,
+                   "emap_tpu_torch/csrc/mlp_value.cu",
+                   "emap_tpu/kernels/mlp_query.py:328",
+                   f32 * (8 * GRID_N + GRID_N) + pack_bytes,
+                   mlp_query.value_flops(ucfg) * GRID_N),
     ]
-    rows = []
-    for name, kern, plain, blocks, args, src, replaces, nbytes, flops in cases:
-        got = blocks(kern(*args, ucfg))
-        torch.cuda.synchronize()
-        want = blocks(plain(*args, ucfg))
-        abs_err, rel_err, worst = errors(got, want)
-        print(f"kernel {name}: max abs err {abs_err:.3e}, max rel err "
-              f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
-              f"{KERNEL_RTOL:g})", flush=True)
-        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
-              f"{name} gave non-finite values")
-        check(rel_err <= KERNEL_RTOL, f"{name} disagrees with its plain "
-              f"version: max rel err {rel_err:.3e} in block {worst}")
-        ms = time_ms(lambda: kern(*args, ucfg), 5)
-        plain_ms = time_ms(lambda: plain(*args, ucfg), 3)
-        t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
-        bound_ms = 1e3 * max(t_bytes, t_ops)
-        print(f"kernel {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP, "
-              f"{nbytes / 1e6:.1f} MB), N={n}", flush=True)
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": 0, "max_abs_err": abs_err,
-            "max_rel_err": rel_err, "worst_block": worst, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        })
-    return rows
+
+
+def sliced_row(ucfg, n: int) -> dict:
+    """The sliced value-and-gradient query at n points (one line-direction
+    call of the extraction) against its plain version."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query
+
+    w, b = packed_weights(ucfg)
+    x = raw_points(torch.Generator(device="cuda").manual_seed(2), n)
+    f32 = 4
+    return kernel_row(
+        "mlp_value_and_grad_sliced", mlp_query.value_and_grad_sliced,
+        sliced_plain, query_blocks, (x, w, b), ucfg,
+        "emap_tpu_torch/csrc/mlp_query.cu",
+        "emap_tpu/kernels/mlp_query.py:363",
+        f32 * (8 * n + n + 8 * n + w.numel() + b.numel()),
+        mlp_query.query_flops(ucfg) * n)
 
 
 def write_run_conf(tmp: str) -> str:
@@ -192,6 +275,7 @@ def write_run_conf(tmp: str) -> str:
     conf["train.end_iter"] = END_ITER
     conf["train.report_freq"] = 5
     conf["train.save_freq"] = 10
+    conf["train.val_freq"] = END_ITER
     path = os.path.join(tmp, "ABC_smoke.conf")
     with open(path, "w") as f:
         f.write(conf.to_hocon())
@@ -293,6 +377,215 @@ def step_phase(runner, smi: str) -> None:
               f"{e.count // 2:5d}/step  {e.key[:100]}", flush=True)
 
 
+def validation_check(runner, h: int, w: int, smi: str) -> None:
+    """The CLI run's validation images decode at the view's size and the
+    rendered edge map is not constant; then one more validation, timed."""
+    import glob
+
+    import torch
+
+    from emap_tpu_torch.data.png import read_png
+
+    shapes = {"edge_maps": (2 * h, w, 3), "normals": (h, w, 3),
+              "depths": (h, w, 3)}
+    for kind, shape in shapes.items():
+        files = glob.glob(os.path.join(runner.base_exp_dir, kind,
+                                       f"{END_ITER:08d}_*.png"))
+        check(len(files) == 1, f"{kind}: {len(files)} images of step "
+              f"{END_ITER}")
+        img = read_png(files[0])
+        check(img.shape == shape, f"{kind} image is {img.shape}, not {shape}")
+        if kind == "edge_maps":
+            rendered = img[:h, :, 0]
+            check(int(rendered.max()) > int(rendered.min()),
+                  "the rendered edge map is constant")
+            print(f"validate: rendered edge map spans {rendered.min()}-"
+                  f"{rendered.max()}, mean {rendered.mean():.1f}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.validate(idx=0)
+    torch.cuda.synchronize()
+    print(f"validate: one {h}x{w} view in {time.perf_counter() - t0:.2f} s "
+          f"({-(-h * w // runner.batch_size)} chunks of "
+          f"{runner.batch_size} rays) on {smi}", flush=True)
+
+
+def cube_edge_distance(pts, edges):
+    """Distance of each point (N, 3) to the nearest of the segments
+    (S, 2, 3), all torch tensors on one device."""
+    import torch
+
+    a, b = edges[:, 0], edges[:, 1]
+    ab = b - a
+    t = torch.clamp(((pts[:, None] - a[None]) * ab[None]).sum(-1)
+                    / (ab * ab).sum(-1)[None], 0.0, 1.0)
+    closest = a[None] + t[..., None] * ab[None]
+    return torch.linalg.norm(pts[:, None] - closest, dim=-1).min(dim=1)[0]
+
+
+def regress_cube_field(ucfg):
+    """The ABC-width field regressed onto the analytic UDF of the cube's 12
+    edges by plain autograd and Adam: uniform samples in [-1, 1]^3 and
+    samples within 0.1 of the edges, from a seed."""
+    import torch
+
+    from emap_tpu_torch.data.synthetic import cube_edges
+    from emap_tpu_torch.fields.udf import init_udf_params, udf_value
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_udf_params(torch.Generator().manual_seed(0), ucfg,
+                             device="cuda")
+    leaves = [t.requires_grad_(True) for layer in params.values()
+              for t in layer.values()]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, REGRESS_STEPS,
+                                                       eta_min=5e-5)
+    edges = torch.as_tensor(cube_edges(0.5), dtype=torch.float32,
+                            device="cuda")
+    for step in range(REGRESS_STEPS):
+        uni = torch.rand(4096, 3, generator=gen, device="cuda") * 2.0 - 1.0
+        seg = edges[torch.randint(0, 12, (4096,), generator=gen,
+                                  device="cuda")]
+        t = torch.rand(4096, 1, generator=gen, device="cuda")
+        near = seg[:, 0] + t * (seg[:, 1] - seg[:, 0]) + 0.1 * torch.randn(
+            4096, 3, generator=gen, device="cuda") * torch.rand(
+            4096, 1, generator=gen, device="cuda")
+        pts = torch.cat([uni, near])
+        loss = torch.mean((udf_value(params, pts, ucfg)
+                           - cube_edge_distance(pts, edges)) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+    print(f"extract: cube field regressed in {REGRESS_STEPS} Adam steps, "
+          f"final loss {float(loss.detach()):.3e}", flush=True)
+    return {k: {n: t.detach() for n, t in layer.items()}
+            for k, layer in params.items()}
+
+
+def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
+    """Phase 6: `--mode extract_edge` with the ABC conf's edge_extraction
+    block on the regressed cube field; the launches against a reckoning
+    from the trace's candidate counts, the result files, the geometry.
+    Returns the sliced value-and-gradient kernel's row, checked at the
+    largest line-direction call of the run."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch import cli, config
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+    from emap_tpu_torch.ckpt.native import save_pytree
+    from emap_tpu_torch.data.synthetic import cube_edges
+    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK, POINT_BATCH
+    from emap_tpu_torch.kernels import mlp_query, mlp_train
+    from emap_tpu_torch.train.runner import Runner
+    from emap_tpu_torch.utils.ply import read_ply_points
+
+    t0 = time.perf_counter()
+    params = regress_cube_field(ucfg)
+    conf = config.parse_file(conf_path)
+    trainer = Runner(conf, "train", device="cuda")
+    trainer.state.params["udf"] = params
+    ckpt = os.path.join(trainer._ckpt_dir(), "ckpt_best.npz")
+    save_pytree(ckpt, checkpoint_payload(trainer.state, 0.01))
+    del trainer
+    print(f"extract: fixture and checkpoint in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+
+    ee = conf.get_config("edge_extraction")
+    res, n_jitter = ee.get_int("resolution"), ee.get_int("sampling_N")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mlp_query.value.launches = 0
+    mlp_query.value_and_grad.launches = 0
+    mlp_train.train_bwd.launches = 0
+    t0 = time.perf_counter()
+    runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mlp_value": mlp_query.value.launches,
+                "mlp_value_and_grad_sliced":
+                    mlp_query.value_and_grad.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(mlp_train.train_bwd.launches == 0, "extraction ran the backward")
+
+    # the reckoning: one value launch per grid chunk and per probe
+    # certification; per feature batch of m live candidates one
+    # value-and-gradient launch, plus one per SLICE_CAP of its m * sampling_N
+    # line-direction samples (padded to the tile)
+    trace = runner.extract_trace
+
+    def linedir_points(m):
+        return mlp_query.round_up(m * n_jitter, mlp_query.POINT_TILE)
+
+    def sweep_launches(t):
+        sizes = [min(POINT_BATCH, t["points"] - s)
+                 for s in range(0, t["points"], POINT_BATCH)]
+        return sum(1 + (-(-linedir_points(m) // mlp_query.SLICE_CAP)
+                        if t["linedir"] else 0) for m in sizes)
+
+    want_value = sum(-(-t["points"] // GRID_CHUNK) for t in trace
+                     if t["stage"] == "grid") + sum(
+        1 for t in trace if t["stage"] == "certify")
+    sweeps = [t for t in trace if t["stage"] == "sweep"]
+    want_vg = sum(sweep_launches(t) for t in sweeps)
+    linedir_n = max(linedir_points(min(POINT_BATCH, t["points"]))
+                    for t in sweeps if t["linedir"])
+    stages = {}
+    for t in trace:
+        stages.setdefault(t["stage"], []).append(t)
+    for name in ("grid", "sweep", "certify", "pointcloud", "probe", "fit",
+                 "fit_score"):
+        ts = stages.get(name, [])
+        print(f"extract: stage {name}: {len(ts)} x, "
+              f"{sum(t['seconds'] for t in ts):.3f} s"
+              + (f", points {[t['points'] for t in ts]}"
+                 if ts and "points" in ts[0] else ""), flush=True)
+    fit_s = sum(t["seconds"] for t in stages.get("fit", []))
+    print(f"extract: host fits {fit_s:.1f} s, selector scoring "
+          f"{sum(t['seconds'] for t in stages['fit_score']) - fit_s:.1f} s",
+          flush=True)
+    print(f"extract: {wall:.1f} s through emap_tpu_torch.cli (set-up "
+          f"included) on {smi}; peak device memory {peak:.2f} GiB; launches "
+          f"{launches}, reckoned mlp_value {want_value}, "
+          f"mlp_value_and_grad_sliced {want_vg}", flush=True)
+    check(launches["mlp_value"] == want_value > 0,
+          f"mlp_value launched {launches['mlp_value']} times, reckoned "
+          f"{want_value}")
+    check(launches["mlp_value_and_grad_sliced"] == want_vg > 0,
+          f"the sliced value-and-gradient launched "
+          f"{launches['mlp_value_and_grad_sliced']} times, reckoned {want_vg}")
+    row_of["mlp_value"]["launches"] = launches["mlp_value"]
+
+    results = os.path.join(runner.base_exp_dir, "results")
+    for fn in ("udf_pointcloud_withdirection.ply", "edge_points.ply",
+               "parametric_edges.json", "threshold_selection.json"):
+        check(os.path.exists(os.path.join(results, fn)), f"no {fn}")
+    cloud, _ = read_ply_points(os.path.join(results,
+                                            "udf_pointcloud_withdirection.ply"))
+    edge_pts, _ = read_ply_points(os.path.join(results, "edge_points.ply"))
+    with open(os.path.join(results, "threshold_selection.json")) as f:
+        picked = json.load(f)
+    check(len(cloud) > 0 and len(edge_pts) > 0, f"empty extraction: "
+          f"{len(cloud)} cloud points, {len(edge_pts)} edge points")
+    check(bool(np.isfinite(edge_pts).all()), "non-finite edge points")
+    dist = cube_edge_distance(
+        torch.as_tensor(edge_pts, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(cube_edges(0.5), dtype=torch.float32, device="cuda"))
+    median = float(dist.median())
+    print(f"extract: {len(cloud)} cloud points, {len(edge_pts)} edge points "
+          f"(picked threshold {picked['picked']}, fit seed "
+          f"{picked['picked_fit_seed']}); edge points to the cube's edges: "
+          f"median {median:.5f}, 90th percentile "
+          f"{float(dist.quantile(0.9)):.5f} (bar {EDGE_MEDIAN_MAX:.5f}, "
+          f"resolution {res})", flush=True)
+    check(median < EDGE_MEDIAN_MAX, f"edge points lie {median:.5f} from the "
+          f"cube's edges (median), over one voxel")
+    row = sliced_row(ucfg, linedir_n)
+    row["launches"] = launches["mlp_value_and_grad_sliced"]
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -348,16 +641,28 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = {"mlp_value_and_grad": mlp_query.value_and_grad.launches,
                     "mlp_train_bwd": mlp_train.train_bwd.launches}
-        for row in rows:
-            row["launches"] = launches[row["name"]]
-        print(f"train: {END_ITER} steps through emap_tpu_torch.cli in "
-              f"{wall:.1f} s (set-up and first step included); launches "
-              f"{launches}", flush=True)
+        row_of = {row["name"]: row for row in rows}
+        for name, count in launches.items():
+            row_of[name]["launches"] = count
+        # the one validation renders the view in batch_size-ray chunks, one
+        # forward launch each
+        h, w = (runner.scene.H // runner.validate_resolution_level,
+                runner.scene.W // runner.validate_resolution_level)
+        val_chunks = -(-h * w // runner.batch_size)
+        print(f"train: {END_ITER} steps and one validation through "
+              f"emap_tpu_torch.cli in {wall:.1f} s (set-up and first step "
+              f"included); launches {launches}, {val_chunks} of them "
+              f"validation chunks", flush=True)
         check(runner.state.step == END_ITER, f"trained to step "
               f"{runner.state.step}, not {END_ITER}")
-        for name, count in launches.items():
-            check(count == END_ITER, f"{name} launched {count} times in "
-                  f"{END_ITER} steps")
+        check(launches["mlp_train_bwd"] == END_ITER, "mlp_train_bwd "
+              f"launched {launches['mlp_train_bwd']} times in {END_ITER} "
+              "steps")
+        check(launches["mlp_value_and_grad"] == END_ITER + val_chunks,
+              f"mlp_value_and_grad launched "
+              f"{launches['mlp_value_and_grad']} times, not {END_ITER} "
+              f"steps + {val_chunks} validation chunks")
+        validation_check(runner, h, w, smi)
         losses = [h["loss"] for h in runner.history]
         check(len(losses) == END_ITER and all(map(math.isfinite, losses)),
               f"non-finite or missing losses: {losses}")
@@ -378,6 +683,7 @@ def main() -> int:
 
         first_step_check(conf_path, losses[0])
         step_phase(runner, smi)
+        rows.append(extract_phase(conf_path, ucfg, row_of, smi))
 
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

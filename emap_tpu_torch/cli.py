@@ -1,10 +1,12 @@
 """Conf-driven CLI, the same interface as emap_tpu/cli.py:
 
-    python -m emap_tpu_torch.cli --conf confs/ABC.conf --mode train \
-        [--scan SCAN] [--is_continue] [--device cuda|cpu]
+    python -m emap_tpu_torch.cli --conf confs/ABC.conf \
+        --mode {train,extract_edge} [--scan SCAN] [--is_continue] \
+        [--device cuda|cpu]
 
 Runs on the card unless `--device cpu` is given. `--mode extract_edge`
-belongs to a later slice of the port and raises NotImplementedError.
+reads the conf's `edge_extraction` block as emap_tpu/cli.py does and
+extracts from the run's checkpoint.
 """
 
 from __future__ import annotations
@@ -50,7 +52,23 @@ def main(argv=None) -> Runner:
     if args.mode == "train":
         runner.train()
     else:
-        runner.extract_edge()
+        ee = conf.get_config("edge_extraction")
+        runner.extract_edge(
+            resolution=ee.get_int("resolution"),
+            udf_threshold=ee.get_float("udf_threshold"),
+            sampling_N=ee.get_int("sampling_N"),
+            sampling_delta=ee.get_float("sampling_delta"),
+            is_pointshift=ee.get_bool("is_pointshift"),
+            iters=ee.get_int("iters"),
+            is_linedirection=ee.get_bool("is_linedirection"),
+            visible_checking=ee.get_bool("visible_checking"),
+            auto_threshold=[float(t)
+                            for t in ee.get_list("auto_threshold", [])],
+            # "" = the runner's device; "cpu" extracts on the CPU
+            platform=ee.get_string("platform", ""),
+            # > 1 = best-of-K fit draws ranked by the GT-free probe scorer
+            fit_draws=ee.get_int("fit_draws", 1),
+        )
     return runner
 
 

@@ -1,11 +1,17 @@
-// Shared pieces of the fused UDF-MLP kernels (mlp_query.cu, mlp_train.cu).
+// Shared pieces of the fused UDF-MLP kernels (mlp_query.cu, mlp_train.cu,
+// mlp_value.cu).
 //
 // Layout: every per-point array is FEATURE-MAJOR, (rows, ld) with the point
 // axis contiguous, as in the JAX package's Pallas kernels. One block of NT
-// threads owns one tile of P points and walks it through every layer; the
-// per-layer vectors of a tile live in a device-memory scratch buffer that
-// the Python wrapper allocates (rows x ld floats), indexed by the global
-// point index, so a tile's freshly written rows are read back from L2.
+// threads owns one tile of P points and walks it through every layer.
+// mlp_query.cu and mlp_train.cu keep the per-layer vectors of a tile in a
+// device-memory scratch buffer that the Python wrapper allocates: rows x ld
+// floats, ld = N, so a tile's rows sit at column offset n0 of every row. At
+// the training step's N = 116,736 it takes 1.5 GB (forward) or 5.7 GB
+// (backward), far beyond the 50 MB L2: only a block's layer-to-layer
+// working set may stay in L2, and the stored activations and sigmoids that
+// the reverse chains read back come from device memory. mlp_value.cu keeps
+// its tile in shared memory instead (ld = P, n0 = 0).
 //
 // The weights are the packed buffers of kernels/mlp_query.py::pack_weights:
 // W (rmax, ldw) with layer l's (out_l, in_l) block at column off_l, and

@@ -1,8 +1,13 @@
-// Fused UDF field query for the training step: value and spatial gradient.
+// Fused UDF field query: value and spatial gradient.
 //
-// Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad with
-// fuse_pe=True, f32_residuals=True (the forward of the training query,
-// emap_tpu/kernels/mlp_train.py::_train_query).
+// Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad in both
+// its uses: with fuse_pe=True, f32_residuals=True as the forward of the
+// training query (emap_tpu/kernels/mlp_train.py::_train_query), and as the
+// extraction query of pallas_udf_value_and_grad (PE outside, bf16 residuals
+// on the "high" tier there: only to fit VMEM; in fp32 the same function).
+// The extraction's calls reach 3,276,800 points, so the wrapper
+// (kernels/mlp_query.py::value_and_grad_sliced) launches over slices of at
+// most SLICE_CAP points and the scratch stays bounded.
 //
 // Computes, per point: the in-kernel PE encode, 9 linears with
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), the abs/square/sdf
@@ -15,10 +20,12 @@
 // at the fp32 FMA peak (67 TFLOP/s) the step's 116,736 points take >= 3.2 ms.
 // Design: the 8 sigmoid residuals are 8 KB a point, more than shared
 // memory holds beyond ~24 points, so one block walks a tile of 64 points
-// through every layer and keeps the tile's residuals in a device scratch
-// buffer (rows indexed by point; freshly written, they are read back from
-// L2). Weights stream from L2 through 16-deep shared-memory stages; each
-// thread accumulates a 4 x 4 register tile in fp32 FMA.
+// through every layer and keeps the tile's per-layer vectors in a
+// feature-major device scratch buffer (3,138 rows x N floats at ABC width:
+// 1.5 GB at the step's N = 116,736, 3.3 GB at a 262,144-point slice); the
+// residuals the reverse pass reads back come from device memory, not L2.
+// Weights stream from L2 through 16-deep shared-memory stages; each thread
+// accumulates a 4 x 4 register tile in fp32 FMA.
 
 #include "mlp_common.cuh"
 

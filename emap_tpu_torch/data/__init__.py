@@ -1,6 +1,7 @@
 from emap_tpu_torch.data.dataset import (
     RayPool,
     SceneData,
+    edge_at,
     gen_rays_at,
     importance_cdf,
     load_scene,
@@ -14,6 +15,7 @@ from emap_tpu_torch.data.synthetic import make_synthetic_scene
 __all__ = [
     "RayPool",
     "SceneData",
+    "edge_at",
     "gen_rays_at",
     "importance_cdf",
     "load_scene",

@@ -226,3 +226,27 @@ def gen_rays_at(scene: SceneData, img_idx: int, resolution_level: int = 1):
     rays_d = rays_v @ scene.poses[img_idx, :3, :3].T
     rays_o = np.broadcast_to(scene.poses[img_idx, :3, 3], rays_d.shape).copy()
     return rays_o, rays_d, depth_scale
+
+
+def edge_at(scene: SceneData, idx: int, resolution_level: int) -> np.ndarray:
+    """Ground-truth edge image (h, w) uint8 at 1/resolution_level size. At
+    level 1 it equals the JAX package's cv2.resize to the same size (the map
+    itself). Above 1 it is a bilinear resize with OpenCV's pixel-centre
+    convention, computed in float and rounded: within one grey level of
+    cv2's fixed-point INTER_LINEAR, not bit for bit."""
+    edge = (scene.edges[idx] * 255.0).astype(np.uint8)
+    h, w = scene.H // resolution_level, scene.W // resolution_level
+    if (h, w) == edge.shape:
+        return edge
+
+    def taps(n_out, n_in):
+        s = np.maximum((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0)
+        i0 = np.minimum(np.floor(s).astype(np.int64), n_in - 1)
+        return i0, np.minimum(i0 + 1, n_in - 1), s - i0
+
+    y0, y1, fy = taps(h, edge.shape[0])
+    x0, x1, fx = taps(w, edge.shape[1])
+    e = edge.astype(np.float64)
+    rows = e[y0] * (1.0 - fy[:, None]) + e[y1] * fy[:, None]
+    out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)

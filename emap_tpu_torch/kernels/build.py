@@ -19,7 +19,7 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
-SOURCES = ("mlp_query", "mlp_train")
+SOURCES = ("mlp_query", "mlp_train", "mlp_value")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,20 +1,27 @@
-"""Fused UDF-MLP query: value + spatial gradient (port of
-emap_tpu/kernels/mlp_query.py, the `_pallas_value_and_grad` path with
-fuse_pe=True, f32_residuals=True that the training step runs).
+"""Fused UDF-MLP queries (port of emap_tpu/kernels/mlp_query.py): value +
+spatial gradient for the training step and the extraction sweeps, and the
+value alone for the extraction grid.
 
 * `fold_weights`, `pack_weights`, `pe_perm`: the weight-norm fold and the
   packing into two buffers, in torch, so autograd carries the packed-weight
   gradients back to (g, v, b).
-* `value_and_grad_plain`: the plain PyTorch version of the kernel's math,
-  feature-major like the kernel (CPU tests, and the reference the CUDA
-  kernel is held against on the card).
+* `value_and_grad_plain`, `value_plain`: the plain PyTorch versions of the
+  kernels' math, feature-major like the kernels (CPU tests, and the
+  references the CUDA kernels are held against on the card).
 * `value_and_grad`: the wrapper. A CPU tensor takes the plain version; a
   CUDA tensor launches csrc/mlp_query.cu (replaces
   emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad) or raises.
   `value_and_grad.launches` counts the kernel launches.
+  `value_and_grad_sliced` calls it over slices of at most SLICE_CAP points,
+  which bounds the kernel's device scratch on the extraction's large calls.
+* `value`: the same for csrc/mlp_value.cu (replaces
+  emap_tpu/kernels/mlp_query.py::_pallas_value), with `value.launches`.
+* `query_value`, `query_value_and_grad`: (M, 3) points in, padded to the
+  tile, the counterparts of `pallas_udf_value` and
+  `pallas_udf_value_and_grad` that the extraction calls.
 
-Arrays are feature-major, (features, points). The kernel reads the raw
-points as (8, N) with 3 live rows and returns udf (N,) and the spatial
+Arrays are feature-major, (features, points). The kernels read the raw
+points as (8, N) with 3 live rows and return udf (N,) and the spatial
 gradient (8, N) with 3 live rows. N must be a multiple of POINT_TILE.
 """
 
@@ -28,6 +35,11 @@ import torch
 from emap_tpu_torch.fields.udf import UDFConfig, effective_weight, softplus100
 
 POINT_TILE = 64  # points per CUDA block (csrc/mlp_common.cuh: P)
+# Most points a value_and_grad launch takes in value_and_grad_sliced: the
+# kernel's scratch is ~3,140 rows x N floats (3.3 GB at ABC width for this
+# cap, ~41 GB for a whole 3,276,800-point line-direction sweep). At least
+# the training step's 116,736 points, so a step stays one launch.
+SLICE_CAP = 262_144
 INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
 _UDF_TYPES = {"abs": 0, "square": 1, "sdf": 2}
 
@@ -225,6 +237,22 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     return udf[0], pe_jac_fused(uf, g_inputs, cfg)
 
 
+def value_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """Plain PyTorch version of the value kernel: x_T (8, N) raw points ->
+    udf (N,). The forward of value_and_grad_plain without residuals."""
+    layers = unpack_weights(w_pack, b_pack, cfg)
+    L = len(layers)
+    d0 = cfg.dims[0]
+    x, _ = encode_fused(x_T, cfg)
+    h = x
+    for l, (w, b) in enumerate(layers):
+        if l in cfg.skip_in:
+            h = torch.cat([h, x[:d0]], dim=0) * INV_SQRT2
+        z = torch.matmul(w, h) + b[:, None]
+        h = softplus100(z) if l < L - 1 else z
+    return head_value(h[0], cfg)
+
+
 def check_operands(cfg: UDFConfig, tensors) -> int:
     """Validate the CUDA operands; returns N (points)."""
     check_kernel_cfg(cfg)
@@ -286,15 +314,107 @@ def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
 value_and_grad.launches = 0
 
 
+def value_and_grad_sliced(x_T, w_pack, b_pack, cfg: UDFConfig,
+                          cap: int = SLICE_CAP):
+    """value_and_grad over slices of at most `cap` points (a multiple of
+    POINT_TILE), concatenated: one launch per slice on the card, so the
+    kernel's scratch never exceeds `cap` points' worth. Points are
+    independent, so the result does not depend on the slicing."""
+    n = x_T.shape[1]
+    if cap <= 0 or cap % POINT_TILE:
+        raise ValueError(f"cap must be a positive multiple of {POINT_TILE}")
+    if n <= cap:
+        return value_and_grad(x_T, w_pack, b_pack, cfg)
+    parts = [value_and_grad(x_T[:, s: s + cap].contiguous(), w_pack, b_pack,
+                            cfg) for s in range(0, n, cap)]
+    return (torch.cat([u for u, _ in parts]),
+            torch.cat([g for _, g in parts], dim=1))
+
+
+def _value_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_value")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_value_smem_bytes.argtypes = [vp]
+        lib.emap_mlp_value_smem_bytes.restype = ctypes.c_longlong
+        lib.emap_mlp_value.argtypes = [
+            vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float, vp]
+        lib.emap_mlp_value.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def value(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """udf (N,) at raw points x_T (8, N). CPU tensors take value_plain;
+    CUDA tensors launch the kernel (no device scratch)."""
+    if not x_T.is_cuda:
+        return value_plain(x_T, w_pack, b_pack, cfg)
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    lib = _value_lib()
+    layout = kernel_layout(cfg)
+    if lib.emap_mlp_value_smem_bytes(layout.ctypes.data) < 0:
+        raise ValueError("layout refused by the kernel")
+    dev = x_T.device
+    udf = torch.empty(n, device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.emap_mlp_value(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
+        n, layout.ctypes.data, float(cfg.scale), stream)
+    if err:
+        raise RuntimeError(f"mlp_value kernel launch failed: CUDA error {err}")
+    value.launches += 1
+    return udf
+
+
+value.launches = 0
+
+
+def _packed_points(params, pts, cfg: UDFConfig):
+    """(x_T (8, N) zero-padded to the tile, w_pack, b_pack, M) for (M, 3)
+    points, on the points' device, outside autograd."""
+    check_kernel_cfg(cfg)
+    with torch.no_grad():
+        w_pack, b_pack = pack_weights(params, cfg, fuse_pe=True)
+    m = pts.shape[0]
+    x_T = pts.new_zeros(8, round_up(max(m, 1), POINT_TILE),
+                        dtype=torch.float32)
+    x_T[:3, :m] = pts.detach().T.to(torch.float32)
+    return x_T, w_pack.contiguous(), b_pack.contiguous(), m
+
+
+def query_value(params, pts, cfg: UDFConfig):
+    """udf (M,) at (M, 3) points through the value kernel (its plain
+    version on the CPU): the counterpart of pallas_udf_value."""
+    x_T, w_pack, b_pack, m = _packed_points(params, pts, cfg)
+    return value(x_T, w_pack, b_pack, cfg)[:m]
+
+
+def query_value_and_grad(params, pts, cfg: UDFConfig, cap: int = SLICE_CAP):
+    """(udf (M,), grad (M, 3)) at (M, 3) points through the sliced
+    value-and-gradient kernel: the counterpart of pallas_udf_value_and_grad.
+    No autograd graph."""
+    x_T, w_pack, b_pack, m = _packed_points(params, pts, cfg)
+    udf, grad = value_and_grad_sliced(x_T, w_pack, b_pack, cfg, cap)
+    return udf[:m], grad[:3, :m].T
+
+
 def query_flops(cfg: UDFConfig) -> int:
     """FLOP a point of the fused query: forward and reverse products,
     2 * in * out each (the elementwise work is not counted)."""
     return 4 * sum(i * o for _, i, o in cfg.layer_shapes())
 
 
+def value_flops(cfg: UDFConfig) -> int:
+    """FLOP a point of the value kernel: the forward products only."""
+    return 2 * sum(i * o for _, i, o in cfg.layer_shapes())
+
+
 __all__ = [
-    "POINT_TILE", "fold_weights", "pack_weights", "unpack_weights", "pe_perm",
-    "layer_dims",
+    "POINT_TILE", "SLICE_CAP", "fold_weights", "pack_weights",
+    "unpack_weights", "pe_perm", "layer_dims",
     "kernel_layout", "value_and_grad", "value_and_grad_plain",
-    "query_flops",
+    "value_and_grad_sliced", "value", "value_plain", "query_value",
+    "query_value_and_grad", "query_flops", "value_flops",
 ]

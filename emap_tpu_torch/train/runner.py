@@ -1,6 +1,7 @@
-"""Training orchestration (port of the train loop of
+"""Training and extraction orchestration (port of
 emap_tpu/train/runner.py): Runner(conf, mode, is_continue, device) with
-.train(), checkpoints and the report/save/validation cadences.
+.train(), .validate(), .extract_edge(), checkpoints and the
+report/save/validation cadences.
 
 The loop runs one eager step at a time (train/step.py). Each step's metrics
 stay on the device as one packed vector; the loop fetches the pending
@@ -14,12 +15,19 @@ shorter than 500 steps, or one whose end is not on the 500 grid) and saves on
 it under the same improve-only rule, so a short run still leaves its
 checkpoint.
 
-`validate` and `extract_edge` belong to later slices of the port (ROADMAP.md
-queue 1, items 6 and 7) and raise NotImplementedError.
+`validate` renders one view in `batch_size`-ray chunks under no_grad (the
+fused training query serves its field queries) and writes the edge | GT,
+camera-frame normal and JET depth images with the port's PNG writer.
+`extract_edge` extracts the zero-set point cloud on the runner's device
+through the grid and sweep kernels, fits and merges lines and curves on the
+host, and, with `auto_threshold` or `fit_draws > 1`, picks the threshold and
+fit draw by the GT-free scorer (extract/autothresh.py). It writes the same
+four result files as the JAX package.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -32,9 +40,17 @@ import torch
 from emap_tpu_torch import default_device, use_fp32_matmuls
 from emap_tpu_torch.ckpt.convert import checkpoint_payload, state_from_payload
 from emap_tpu_torch.ckpt.native import load_pytree, save_pytree
-from emap_tpu_torch.data.dataset import RayPool, load_scene
+from emap_tpu_torch.data.dataset import (
+    RayPool,
+    edge_at,
+    gen_rays_at,
+    load_scene,
+)
+from emap_tpu_torch.data.png import write_png
+from emap_tpu_torch.extract.parametric import get_parametric_edge
 from emap_tpu_torch.fields.udf import UDFConfig
-from emap_tpu_torch.render.renderer import RenderConfig
+from emap_tpu_torch.render.renderer import RenderConfig, render
+from emap_tpu_torch.train import schedules
 from emap_tpu_torch.train.state import init_train_state
 from emap_tpu_torch.train.step import (
     TrainConfig,
@@ -42,6 +58,7 @@ from emap_tpu_torch.train.step import (
     pack_metrics,
     unpack_metrics,
 )
+from emap_tpu_torch.utils.vis import visualize_depth
 
 logger = logging.getLogger(__name__)
 
@@ -78,6 +95,9 @@ class Runner:
         self.report_freq = conf.get_int("train.report_freq")
         self.val_freq = conf.get_int("train.val_freq")
         self.batch_size = conf.get_int("train.batch_size")
+        self.validate_resolution_level = conf.get_int(
+            "train.validate_resolution_level")
+        self.use_white_bkgd = conf.get_bool("train.use_white_bkgd")
         self.latest_model_name = conf.get_string("train.latest_model_name",
                                                  "ckpt_best.npz")
 
@@ -100,6 +120,10 @@ class Runner:
         # at each fetch, which follows a device sync
         self.history: list = []
         self.timeline: list = []
+        # validation views are drawn from this generator
+        self.val_rng = np.random.default_rng(self.tcfg.seed)
+        # per extraction: one dict per stage ({"stage", "seconds", ...})
+        self.extract_trace: list = []
 
     # -- checkpoints -------------------------------------------------------
     def _ckpt_dir(self) -> str:
@@ -210,13 +234,214 @@ class Runner:
             if step % self.val_freq == 0:
                 self.validate()
 
-    # -- later slices --------------------------------------------------------
-    def validate(self, idx: int = -1, resolution_level: int = -1) -> None:
-        raise NotImplementedError(
-            "validation rendering is not ported yet (ROADMAP.md queue 1, "
-            "item 6); keep train.end_iter below train.val_freq")
+    # -- validation ----------------------------------------------------------
+    def render_image(self, idx: int, resolution_level: int):
+        """One view rendered in `batch_size`-ray chunks under no_grad, with
+        flip_saturation 0 as the JAX package validates: (edge (h, w),
+        depth (h, w), normals (h*w, 3)) numpy. The rays are padded to whole
+        chunks as in the JAX package (origin 0, direction +z, scale 1)."""
+        rays_o, rays_d, depth_scale = gen_rays_at(self.scene, idx,
+                                                  resolution_level)
+        h, w, _ = rays_o.shape
+        flat_o = rays_o.reshape(-1, 3)
+        flat_d = rays_d.reshape(-1, 3)
+        flat_ds = depth_scale.reshape(-1, 1)
+        chunk = self.batch_size
+        n = len(flat_o)
+        pad = (-n) % chunk
+        if pad:
+            flat_o = np.concatenate([flat_o, np.zeros((pad, 3), np.float32)])
+            flat_d = np.concatenate(
+                [flat_d, np.tile(np.array([[0, 0, 1]], np.float32), (pad, 1))])
+            flat_ds = np.concatenate([flat_ds, np.ones((pad, 1), np.float32)])
 
-    def extract_edge(self, **kwargs) -> dict:
-        raise NotImplementedError(
-            "edge extraction is not ported yet (ROADMAP.md queue 1, items "
-            "7 and 8)")
+        def put(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                   device=self.device)
+
+        o, d, ds = put(flat_o), put(flat_d), put(flat_ds)
+        step = int(self.state.step)
+        anneal = schedules.cos_anneal_ratio(step, self.tcfg.anneal_end)
+        gen = torch.Generator(device=self.device).manual_seed(step)
+        bg = 1.0 if self.use_white_bkgd else None
+        n_total = self.rcfg.total_samples
+        edges, depths, normals = [], [], []
+        with torch.no_grad():
+            for c in range(0, len(flat_o), chunk):
+                out = render(self.state.params, o[c: c + chunk],
+                             d[c: c + chunk], self.near, self.far,
+                             ds[c: c + chunk], gen, self.rcfg, self.ucfg,
+                             cos_anneal_ratio=anneal, flip_saturation=0.0,
+                             background_rgb=bg)
+                edges.append(out["edge"])
+                depths.append(out["depth"])
+                normals.append(torch.sum(
+                    out["gradients_flip"] * out["weights"][:, :n_total, None],
+                    dim=1))
+
+        def fetch(parts):
+            return torch.cat(parts)[:n].cpu().numpy()
+
+        return (fetch(edges).reshape(h, w), fetch(depths).reshape(h, w),
+                fetch(normals))
+
+    def validate(self, idx: int = -1, resolution_level: int = -1) -> dict:
+        """Render one view (a random one unless `idx` is given) and write
+        edge_maps/ (rendered | GT), normals/ (camera frame) and depths/
+        (JET) PNGs named <step>_<idx>.png; returns {kind: path}."""
+        if idx < 0:
+            idx = int(self.val_rng.integers(self.scene.n_images))
+        if resolution_level < 0:
+            resolution_level = self.validate_resolution_level
+        edge, depth, normals = self.render_image(idx, resolution_level)
+        h, w = edge.shape
+        name = f"{int(self.state.step):08d}_{idx}.png"
+        paths = {}
+
+        def write(kind, img):
+            os.makedirs(os.path.join(self.base_exp_dir, kind), exist_ok=True)
+            paths[kind] = os.path.join(self.base_exp_dir, kind, name)
+            write_png(paths[kind], img)
+
+        # edge map: rendered over ground truth
+        edge_img = (edge * 255).clip(0, 255).astype(np.uint8)
+        gt = edge_at(self.scene, idx, resolution_level).astype(np.uint8)
+        write("edge_maps", np.concatenate([np.stack([edge_img] * 3, axis=-1),
+                                           np.stack([gt] * 3, axis=-1)]))
+        # normals rotated into the camera frame
+        rot = np.linalg.inv(self.scene.poses[idx, :3, :3])
+        normal_img = ((normals @ rot.T).reshape(h, w, 3) * 128 + 128).clip(
+            0, 255).astype(np.uint8)
+        write("normals", normal_img[:, :, ::-1])
+        write("depths", visualize_depth(depth)[:, :, ::-1])
+        return paths
+
+    # -- extraction ----------------------------------------------------------
+    def extract_edge(self, resolution: int = 256, udf_threshold: float = 1.0,
+                     sampling_N: int = 50, sampling_delta: float = 5e-3,
+                     is_pointshift: bool = False, iters: int = 1,
+                     is_linedirection: bool = False,
+                     visible_checking: bool = False,
+                     auto_threshold=None, platform: str = "",
+                     fit_draws: int = 1) -> dict:
+        """Extract parametric edges from the checkpointed UDF; the options
+        are the JAX package's (emap_tpu/train/runner.py::extract_edge).
+        `platform`: "" extracts on the runner's device, "cpu" on the CPU
+        (the kernels' plain versions); any other value raises. Stage times
+        and sizes land in `self.extract_trace`."""
+        if platform not in ("", "cpu"):
+            raise ValueError(f"edge_extraction.platform {platform!r}: the "
+                             'port extracts on "" (the runner\'s device) or '
+                             '"cpu"')
+        self.load_checkpoint()
+        device = torch.device("cpu") if platform == "cpu" else self.device
+        params = {k: {n: t.detach().to(device) for n, t in layer.items()}
+                  for k, layer in self.state.params["udf"].items()}
+        self.extract_trace = []
+        return self._extract_edge_impl(
+            params, resolution, udf_threshold, sampling_N, sampling_delta,
+            is_pointshift, iters, is_linedirection, visible_checking,
+            auto_threshold, fit_draws)
+
+    def _extract_edge_impl(self, params, resolution, udf_threshold,
+                           sampling_N, sampling_delta, is_pointshift, iters,
+                           is_linedirection, visible_checking,
+                           auto_threshold, fit_draws=1) -> dict:
+        from emap_tpu_torch.extract.pointcloud import (
+            extract_pointcloud,
+            extract_pointcloud_multi,
+        )
+        from emap_tpu_torch.utils.ply import write_ply_points
+
+        trace = self.extract_trace
+        extract_kw = dict(resolution=resolution, sampling_N=sampling_N,
+                          sampling_delta=sampling_delta,
+                          is_pointshift=is_pointshift, iters=iters,
+                          is_linedirection=is_linedirection, trace=trace)
+
+        def fit(points, line_dirs, seed=42):
+            ld_colors = (line_dirs + 1.0) / 2.0
+            pred_points, edge_dict = get_parametric_edge(
+                points, ld_colors, resolution, self.scene.detector,
+                self.scene.data_dir, visible_checking=visible_checking,
+                seed=seed)
+            return points, ld_colors, pred_points, edge_dict
+
+        def timed(stage, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            trace.append({"stage": stage,
+                          "seconds": time.perf_counter() - t0})
+            return out
+
+        result_dir = os.path.join(self.base_exp_dir, "results")
+        os.makedirs(result_dir, exist_ok=True)
+
+        if auto_threshold or fit_draws > 1:
+            from emap_tpu_torch.extract.autothresh import (
+                build_probe_points,
+                select_udf_threshold,
+            )
+
+            # fit_draws > 1 without auto_threshold still routes through the
+            # selector: one candidate threshold, K fit draws
+            candidates = (list(auto_threshold) if auto_threshold
+                          else [udf_threshold])
+            # 42 first, so draw 0 is the reference's fixed fit seed
+            fit_seeds = ([42] + [s for s in range(int(fit_draws))
+                                 if s != 42][:int(fit_draws) - 1]
+                         if fit_draws > 1 else None)
+            # one shared grid + feature + shift pass serves every candidate
+            multi = timed("pointcloud", lambda: extract_pointcloud_multi(
+                params, self.ucfg, thresholds=candidates, **extract_kw))
+            cache: dict = {}
+
+            def edge_dict_at(thr: float, seed: int = 42) -> dict:
+                # the fits are timed apart from the selector's scoring
+                cache[(thr, seed)] = timed(
+                    "fit", lambda: fit(*multi[float(thr)], seed=seed))
+                return cache[(thr, seed)][3]
+
+            # the field's own certified zero set stands in for GT when
+            # ranking candidates (autothresh.pick_candidate)
+            probe = timed("probe", lambda: build_probe_points(
+                params, self.ucfg, resolution,
+                loose_threshold=max(candidates), sampling_N=sampling_N,
+                sampling_delta=sampling_delta, trace=trace))
+            best_thr, _, rows = timed("fit_score", lambda: select_udf_threshold(
+                edge_dict_at, candidates, self.scene.data_dir,
+                self.scene.detector, default_thr=udf_threshold,
+                # a probe under 64 points quantizes recall3d in steps of
+                # 1/n: rank by the 2D score and the conf anchor instead
+                probe_points=probe if len(probe) >= 64 else None,
+                fit_seeds=fit_seeds))
+            picked_seed = next(r for r in rows if r.get("picked")).get(
+                "fit_seed", 42)
+            points, ld_colors, pred_points, edge_dict = cache[
+                (best_thr, picked_seed)]
+            with open(os.path.join(result_dir, "threshold_selection.json"),
+                      "w") as f:
+                json.dump({"picked": best_thr, "picked_fit_seed": picked_seed,
+                           "fit_draws": fit_draws, "candidates": rows}, f,
+                          indent=1)
+            logger.info("%s picked %.3g from %s (fit seed %d, %d draws)",
+                        "auto_threshold" if auto_threshold
+                        else "fit_draws at fixed threshold",
+                        best_thr, candidates, picked_seed, max(fit_draws, 1))
+        else:
+            points, line_dirs = timed("pointcloud", lambda: extract_pointcloud(
+                params, self.ucfg, udf_threshold=udf_threshold, **extract_kw))
+            points, ld_colors, pred_points, edge_dict = timed(
+                "fit_score", lambda: fit(points, line_dirs))
+
+        write_ply_points(
+            os.path.join(result_dir, "udf_pointcloud_withdirection.ply"),
+            points, ld_colors)
+        write_ply_points(os.path.join(result_dir, "edge_points.ply"),
+                         pred_points)
+        with open(os.path.join(result_dir, "parametric_edges.json"), "w") as f:
+            json.dump(edge_dict, f)
+        logger.info("extracted %d curves + %d lines -> %s",
+                    len(edge_dict["curves_ctl_pts"]),
+                    len(edge_dict["lines_end_pts"]), result_dir)
+        return edge_dict

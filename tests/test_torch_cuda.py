@@ -112,3 +112,48 @@ def test_cuda_train_query_grads_match_autograd(cuda):
     for gk, ga in zip(grads(tt.udf_train_value_and_gradient),
                       grads(tudf.udf_value_and_gradient)):
         assert max_rel(gk, ga) < 3e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [262_144, 300_032])
+def test_cuda_extraction_kernels_match_plain(cuda, n):
+    """At ABC width: the value kernel, and the value-and-gradient kernel
+    through the extraction's slicing wrapper (one launch per SLICE_CAP
+    points), against their plain versions, max rel 1e-4 per output. Above
+    the cap the slices concatenate to the unsliced launch bit for bit (each
+    point is computed alone)."""
+    cfg = CFGS["abc"]
+    x, _, _ = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = (tq.value.launches, tq.value_and_grad.launches)
+    u = tq.value(x, w, b, cfg)
+    us, gs = tq.value_and_grad_sliced(x, w, b, cfg)
+    torch.cuda.synchronize()
+    slices = -(-n // tq.SLICE_CAP)
+    assert (tq.value.launches, tq.value_and_grad.launches) == (
+        before[0] + 1, before[1] + slices)
+    up = tq.value_plain(x, w, b, cfg)
+    uvp, gvp = tq.value_and_grad_plain(x, w, b, cfg)
+    for got, want in ((u, up), (us, uvp), (gs, gvp)):
+        assert bool(torch.isfinite(got).all())
+        assert max_rel(got, want) < 1e-4
+    if slices > 1:
+        uu, gu = tq.value_and_grad(x, w, b, cfg)
+        assert torch.equal(us, uu) and torch.equal(gs, gu)
+
+
+@pytest.mark.cuda
+def test_cuda_point_queries_pad_to_the_tile(cuda):
+    """query_value / query_value_and_grad on (M, 3) points with M not a
+    multiple of the 64-point tile, against the plain field and autograd."""
+    cfg = CFGS["toy-abs"]
+    params = net(cfg, cuda)
+    pts = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, (1000, 3)),
+                          dtype=torch.float32, device=cuda)
+    u = tq.query_value(params, pts, cfg)
+    uv, g = tq.query_value_and_grad(params, pts, cfg, cap=256)
+    ua, ga = tudf.udf_value_and_gradient(params, pts, cfg)
+    assert u.shape == uv.shape == (1000,) and g.shape == (1000, 3)
+    assert max_rel(u, ua.detach()) < 1e-4 and max_rel(uv, ua.detach()) < 1e-4
+    assert max_rel(g, ga.detach()) < 1e-4

@@ -1,7 +1,8 @@
 """The port's fused field-query kernels (emap_tpu_torch/kernels): their
 plain PyTorch versions against the JAX package's Pallas kernels, run in
 interpret mode on the CPU, and the autograd.Function that joins them
-against JAX's custom_vjp.
+against JAX's custom_vjp. tests/test_torch_extract.py holds the extraction's
+point-level wrappers (query_value, query_value_and_grad).
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there."""
@@ -85,6 +86,27 @@ def test_value_and_grad_plain_matches_pallas(udf_type):
     assert max_rel(ut, uj) < 1e-5
     assert max_rel(gt, gj) < 1e-5
     assert float(gt[3:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("udf_type", ["abs", "square", "sdf"])
+def test_value_plain_matches_pallas(udf_type):
+    """value_plain (raw points, blocked-PE packing) against _pallas_value
+    (host-encoded points, interleaved packing), the function kernel #3
+    replaces."""
+    jcfg, tcfg, jp, tp = nets(udf_type, perturb=0.05)
+    x, _, _ = points()
+    wj, bj = jq.pack_weights(jp, jcfg)
+    uj = jq._pallas_value(jq._encode_host(jnp.asarray(x[:3].T), jcfg), wj, bj,
+                          jcfg, 128, True)
+    wt, bt = tq.pack_weights(tp, tcfg, fuse_pe=True)
+    ut = tq.value_plain(torch.as_tensor(x), wt.detach(), bt.detach(), tcfg)
+    assert ut.shape == (N,)
+    # float32 with sums in another order: measured ~1e-6
+    assert max_rel(ut, uj) < 1e-5
+    # the forward of the value-and-gradient version, exactly
+    uvg, _ = tq.value_and_grad_plain(torch.as_tensor(x), wt.detach(),
+                                     bt.detach(), tcfg)
+    assert torch.equal(ut, uvg)
 
 
 @pytest.mark.parametrize("udf_type", ["abs", "square"])
@@ -172,14 +194,17 @@ def test_cpu_tensors_take_the_plain_versions():
     _, tcfg, _, tp = nets()
     x, ubar, gbar = (torch.as_tensor(a) for a in points(n=128))
     w, b = (t.detach() for t in tq.pack_weights(tp, tcfg))
-    before = (tq.value_and_grad.launches, tt.train_bwd.launches)
+    before = (tq.value_and_grad.launches, tt.train_bwd.launches,
+              tq.value.launches)
+    assert torch.equal(tq.value(x, w, b, tcfg), tq.value_plain(x, w, b, tcfg))
     u, g = tq.value_and_grad(x, w, b, tcfg)
     up, gp = tq.value_and_grad_plain(x, w, b, tcfg)
     assert torch.equal(u, up) and torch.equal(g, gp)
     wb, bb = tt.train_bwd(x, w, b, ubar, gbar, tcfg)
     wp, bp = tt.train_bwd_plain(x, w, b, ubar, gbar, tcfg)
     assert torch.equal(wb, wp) and torch.equal(bb, bp)
-    assert (tq.value_and_grad.launches, tt.train_bwd.launches) == before
+    assert (tq.value_and_grad.launches, tt.train_bwd.launches,
+            tq.value.launches) == before
 
 
 def test_kernel_operands_are_checked():
@@ -210,3 +235,7 @@ def test_layout_and_work_at_abc_width():
     assert tq.query_flops(cfg) == 4 * sum(i * o for _, i, o in
                                           cfg.layer_shapes()) == 1_836_032
     assert tt.train_bwd_flops(cfg) == 5_443_584
+    assert tq.value_flops(cfg) == 918_016
+    # the slicing cap keeps a training step (1,024 rays x 114 samples) one
+    # launch of the value-and-gradient kernel
+    assert tq.SLICE_CAP >= 1024 * 114 and tq.SLICE_CAP % tq.POINT_TILE == 0

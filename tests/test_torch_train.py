@@ -333,6 +333,9 @@ def test_cli_trains_and_writes_a_jax_readable_checkpoint(tmp_path):
 
 
 def test_later_slices_raise(tmp_path):
+    """Importing a torch `.pth` checkpoint belongs to a later slice: a
+    `.pth` name with no .npz beside it raises, naming the ROADMAP item."""
     path = _tiny_conf(tmp_path)
+    runner = cli.main(["--conf", path, "--mode", "train", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--conf", path, "--mode", "extract_edge", "--device", "cpu"])
+        runner.load_checkpoint("reference.pth")
