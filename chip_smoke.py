@@ -5,12 +5,17 @@
 
 Phases, each fatal on failure (nonzero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel;
+  2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
+     and count the tensor-core instructions (HMMA) in the training kernels'
+     SASS;
   3. hold each kernel against its plain PyTorch version on the card, output
      block by block, and time both at the shapes its path gives it, beside
-     the reckoned bound: the training query and backward at the step's
+     the reckoned bounds (fp32 FMA; the tensor cores at one TF32 pass and
+     at the design's three) and the achieved rate: the training query and backward at the step's
      N = 1024 rays x 114 samples = 116,736 points, and the extraction's
-     grid value query at a 128^3 grid pass (2,097,152 points);
+     grid value query at a 128^3 grid pass (2,097,152 points); two
+     launches of each training kernel on the same inputs must agree bit for
+     bit;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it, train END_ITER steps at full ABC width through
      `emap_tpu_torch.cli.main(... --mode train)` with one validation at the
@@ -48,18 +53,25 @@ import time
 
 END_ITER = 20
 FP32_PEAK = 67e12  # H100 SXM fp32 FMA peak, FLOP/s (NVIDIA data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core peak, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
-# Kernel vs plain version on the same inputs: fp32 sums in another order
-# (256-long dot products in the forward; sums over 116,736 points in the
-# weight gradient); measured ~1e-6 (forward) and ~4e-6 (backward) max
-# relative error, so 1e-4 leaves a wide margin while catching a wrong term.
+# The training kernels run each product as three TF32 passes (3xTF32, fp32
+# accuracy). Beside the row's bound_ms (fp32 FMA) the kernel line prints two
+# tensor-core times for reference: the function's own, FLOP / TF32_PEAK,
+# and the design's, TC_PASSES x FLOP / TF32_PEAK, which counts its passes.
+TC_PASSES = 3
+# Kernel vs plain version on the same inputs: 3xTF32 tensor-core products
+# (fp32-accurate) summed in another order (256-long dot products in the
+# forward; sums over 116,736 points in the weight gradient); measured ~2e-6
+# (forward) and ~5e-6 (backward) max relative error, so 1e-4 leaves a wide
+# margin while catching a wrong term.
 # Each output is held block by block, each block against its own largest
 # entry: udf and the spatial gradient, and each layer's weight and bias
 # gradient (the packed W-bar spans 5 orders of magnitude across layers).
 KERNEL_RTOL = 1e-4
 # Kernel path vs autograd (cuBLAS) path through the whole step: the same
 # math with other roundoff, amplified by the renderer's steep sigmoids
-# and the abs head's sign; measured 9e-6 max relative error on the first
+# and the abs head's sign; measured ~1e-5 max relative error on the first
 # step. 3e-4 is the bound the JAX package's own kernel-vs-autodiff test
 # holds its fused kernels to.
 STEP_GRAD_RTOL = 3e-4
@@ -160,11 +172,16 @@ def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
     abs_err, rel_err, worst = errors(got, want)
     t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
     bound_ms = 1e3 * max(t_bytes, t_ops)
+    tf32_ms = 1e3 * max(t_bytes, flops / TF32_PEAK)
+    tc_ms = 1e3 * max(t_bytes, TC_PASSES * flops / TF32_PEAK)
     print(f"kernel {name}: max abs err {abs_err:.3e}, max rel err "
           f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
           f"{KERNEL_RTOL:g}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP, "
-          f"{nbytes / 1e6:.1f} MB), N={args[0].shape[1]}", flush=True)
+          f"{bound_ms:.3f} ms fp32 FMA; tensor cores {tf32_ms:.3f} ms at one "
+          f"TF32 pass, {tc_ms:.3f} ms at the design's {TC_PASSES} "
+          f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s achieved), "
+          f"N={args[0].shape[1]}", flush=True)
     check(all(bool(torch.isfinite(g).all()) for g in got.values()),
           f"{name} gave non-finite values")
     check(rel_err <= KERNEL_RTOL, f"{name} disagrees with its plain "
@@ -175,8 +192,40 @@ def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
         "max_rel_err": rel_err, "worst_block": worst, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "n": args[0].shape[1],
+        "library_ms": None,
+        "n": args[0].shape[1],
     }
+
+
+def same_bits(name, kern, args, ucfg) -> None:
+    """Two launches of a kernel on the same inputs agree in every bit (no
+    atomics, sums in a fixed order)."""
+    import torch
+
+    first, second = kern(*args, ucfg), kern(*args, ucfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"kernel {name}: two launches bit-identical: {same}", flush=True)
+    check(same, f"two launches of {name} on the same inputs differ")
+
+
+def tensor_core_sass(names) -> None:
+    """Count the tensor-core instructions (HMMA) in each library's SASS;
+    fail if a training kernel has none."""
+    import shutil
+
+    from emap_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in names:
+        sass = subprocess.run([tool, "-sass", build.lib_path(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        kinds = sorted({w for line in sass.splitlines() for w in line.split()
+                        if w.startswith("HMMA")})
+        count = sum(line.count("HMMA") for line in sass.splitlines())
+        print(f"sass {name}: {count} HMMA instructions {kinds}", flush=True)
+        check(count > 0, f"{name} has no tensor-core instruction")
 
 
 def packed_weights(ucfg):
@@ -214,6 +263,10 @@ def kernel_phase(ucfg, n: int) -> list:
         return {f"lin{l}/{k}": t for l, (wl, bl) in enumerate(layers)
                 for k, t in (("W", wl), ("b", bl))}
 
+    same_bits("mlp_value_and_grad", mlp_query.value_and_grad, (x, w, b),
+              ucfg)
+    same_bits("mlp_train_bwd", mlp_train.train_bwd, (x, w, b, ubar, gbar),
+              ucfg)
     f32 = 4
     pack_bytes = f32 * (w.numel() + b.numel())
     return [
@@ -476,6 +529,7 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     from emap_tpu_torch.ckpt.convert import checkpoint_payload
     from emap_tpu_torch.ckpt.native import save_pytree
     from emap_tpu_torch.data.synthetic import cube_edges
+    from emap_tpu_torch.extract import pointcloud
     from emap_tpu_torch.extract.pointcloud import GRID_CHUNK, POINT_BATCH
     from emap_tpu_torch.kernels import mlp_query, mlp_train
     from emap_tpu_torch.train.runner import Runner
@@ -494,20 +548,61 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
 
     ee = conf.get_config("edge_extraction")
     res, n_jitter = ee.get_int("resolution"), ee.get_int("sampling_N")
+    # what sets the peak: how far each device stage raises the running peak
+    rises = {}
+
+    def watched(fn):
+        def run(*args, **kwargs):
+            stage = ("grid" if fn is grid else
+                     "sweep with line directions" if args[7] else "sweep")
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rises[stage] = (rises.get(stage, 0)
+                            + torch.cuda.max_memory_allocated() - before)
+            return out
+        return run
+
+    grid, batches = pointcloud.grid_masks, pointcloud._run_point_batches
+    pointcloud.grid_masks = watched(grid)
+    pointcloud._run_point_batches = watched(batches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    rises["held before the extraction"] = torch.cuda.memory_allocated()
     mlp_query.value.launches = 0
     mlp_query.value_and_grad.launches = 0
     mlp_train.train_bwd.launches = 0
     t0 = time.perf_counter()
-    runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"])
-    torch.cuda.synchronize()
+    try:
+        runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"])
+        torch.cuda.synchronize()
+    finally:
+        pointcloud.grid_masks, pointcloud._run_point_batches = grid, batches
     wall = time.perf_counter() - t0
     launches = {"mlp_value": mlp_query.value.launches,
                 "mlp_value_and_grad_sliced":
                     mlp_query.value_and_grad.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(mlp_train.train_bwd.launches == 0, "extraction ran the backward")
+    rises["elsewhere"] = peak * 2 ** 30 - sum(rises.values())
+    print("extract: peak device memory by what raised it, GiB: "
+          + ", ".join(f"{k} {v / 2 ** 30:.3f}" for k, v in rises.items()),
+          flush=True)
+    # the line-direction sweep's batched eigh alone, at the sweep's batch
+    a = torch.randn(pointcloud.EIGH_BATCH, 3, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    gram = a @ a.mT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    torch.linalg.eigh(gram)
+    torch.cuda.synchronize()
+    print(f"extract: one eigh of {pointcloud.EIGH_BATCH:,} 3x3 matrices "
+          f"raises the peak device memory by "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.3f} GiB",
+          flush=True)
+    del a, gram
 
     # the reckoning: one value launch per grid chunk and per probe
     # certification; per feature batch of m live candidates one
@@ -619,6 +714,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    tensor_core_sass(("mlp_query", "mlp_train"))
 
     abc = config.parse_file(os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "confs", "ABC.conf"))

@@ -1,24 +1,19 @@
 // Shared pieces of the fused UDF-MLP kernels (mlp_query.cu, mlp_train.cu,
-// mlp_value.cu).
+// mlp_value.cu): the network layout, the activations, the in-kernel PE
+// encode, and tile_gemm.
 //
 // Layout: every per-point array is FEATURE-MAJOR, (rows, ld) with the point
 // axis contiguous, as in the JAX package's Pallas kernels. One block of NT
 // threads owns one tile of P points and walks it through every layer.
-// mlp_query.cu and mlp_train.cu keep the per-layer vectors of a tile in a
-// device-memory scratch buffer that the Python wrapper allocates: rows x ld
-// floats, ld = N, so a tile's rows sit at column offset n0 of every row. At
-// the training step's N = 116,736 it takes 1.5 GB (forward) or 5.7 GB
-// (backward), far beyond the 50 MB L2: only a block's layer-to-layer
-// working set may stay in L2, and the stored activations and sigmoids that
-// the reverse chains read back come from device memory. mlp_value.cu keeps
-// its tile in shared memory instead (ld = P, n0 = 0).
 //
 // The weights are the packed buffers of kernels/mlp_query.py::pack_weights:
 // W (rmax, ldw) with layer l's (out_l, in_l) block at column off_l, and
 // B (rmax, L). They are read per layer from global memory (2.2 MB at ABC
 // width, resident in the 50 MB L2) through shared-memory stages.
 //
-// All arithmetic is fp32 FMA on the CUDA cores; no tensor cores yet.
+// tile_gemm multiplies in fp32 FMA on the CUDA cores; it serves the grid
+// value kernel (mlp_value.cu) alone. The training kernels (mlp_query.cu,
+// mlp_train.cu) multiply on the tensor cores through mlp_mma.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,10 +87,6 @@ __device__ __forceinline__ float rows_at(const Rows& r, int k, size_t ld,
 __device__ __forceinline__ float softplus100(float z) {
   const float t = z * 100.f;
   return (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)))) / 100.f;
-}
-
-__device__ __forceinline__ float sigmoid100(float z) {
-  return 1.f / (1.f + expf(-(z * 100.f)));
 }
 
 __device__ __forceinline__ float sign_of(float y) {
@@ -184,15 +175,6 @@ __device__ __forceinline__ float encode_row(const float* pts, size_t ld,
     return is_sin ? sinf(uf) : cosf(uf);
   }
   return 0.f;
-}
-
-__device__ void encode_tile(const float* pts, size_t ld, size_t n0,
-                            const Layout& lay, float* X) {
-  for (int i = threadIdx.x; i < lay.d0p * P; i += NT) {
-    const int r = i / P;
-    const size_t n = n0 + i % P;
-    X[(size_t)r * ld + n] = encode_row(pts, ld, n, r, lay);
-  }
 }
 
 }  // namespace emap

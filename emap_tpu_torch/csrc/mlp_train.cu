@@ -1,4 +1,5 @@
-// Second-order backward of the fused training field query.
+// Second-order backward of the fused training field query, on the tensor
+// cores.
 //
 // Replaces: emap_tpu/kernels/mlp_train.py::_pallas_train_bwd with
 // fuse_pe=True (per-tile math in _train_bwd_math), the backward of the
@@ -12,38 +13,48 @@
 // FLOP a point (5.44 MFLOP at ABC width: forward, gradient chain, ascend,
 // descend and the two weight-gradient outer products;
 // kernels/mlp_train.py::train_bwd_flops) against 68 bytes a point and
-// 2.2 MB of output; at the fp32 FMA peak (67 TFLOP/s) the step's 116,736
-// points take >= 9.5 ms.
+// 2.2 MB of output: at the step's 116,736 points >= 9.5 ms at the fp32 FMA
+// peak (67 TFLOP/s), >= 3.85 ms for three TF32 passes at the tensor-core
+// peak. Every product but the head's 1-row ones (fp32 FMA) runs as 3xTF32
+// mma.sync (mlp_mma.cuh); as in mlp_query.cu, the work around the mma
+// (operand splits, barriers, epilogues) holds it above the bound.
 // Design: the TPU kernel carries the weight-gradient sum in VMEM from one
 // grid step to the next; blocks on the H100 run in no order, so the work is
-// split in three launches, all deterministic:
-//   1. per_point: one block per 64-point tile walks the four chains and
-//      writes each layer's outer-product factors (r_l, qhat_l, zhat_l, u_l)
-//      to a device scratch buffer;
-//   2. wbar_partials: for each 64 x 64 block of each layer's gradient and
+// split in three launches, all deterministic (no atomics, fixed orders):
+//   1. per_point: one block per 64-point tile walks the four chains as 30
+//      tile products with the tile in shared memory (186 KB at ABC width),
+//      keeps sigmoid(100 z_l) and carry/s_hat_l as side arrays in device
+//      scratch, and writes each layer's outer-product factors (r_l, qhat_l,
+//      zhat_l, u_l) feature-major to it: 12,196 rows x N floats at ABC
+//      width (5.69 GB at the step's N);
+//   2. wbar_partials: for each 128 x 128 block of each layer's gradient and
 //      each of KS fixed point ranges, a block contracts those factors over
-//      its points (and the bias rows sum zhat_l) into its own partial;
+//      its points on the tensor cores, W-bar_l = R_l Qhat_l^T + Zhat_l
+//      U_l^T with K = points, both factors streamed through a cp.async ring
+//      and split as the warps read them (splitting each chunk once into
+//      (hi, lo) slots instead measured slower on the H100); the bias rows
+//      sum zhat_l from the same ring;
 //   3. reduce: the KS partials are summed in a fixed order.
 
-#include "mlp_common.cuh"
+#include "mlp_mma.cuh"
 
 using namespace emap;
 
 namespace {
 
-constexpr int KS = 16;  // point ranges of the weight-gradient contraction
-constexpr int BN = 32;  // points per shared-memory stage of wbar_partials
+constexpr int KS = 16;    // point ranges of the weight-gradient contraction
+constexpr int BT = 128;   // rows and columns of a wbar_partials block
+constexpr int KW = 32;    // points per wbar_partials chunk
+constexpr int SWB = KW + 4;  // row stride of a wbar_partials chunk
+constexpr int MAXT = MAXL * (WMAX / BT) * (WMAX / BT);
 
 struct BwdScratch {
   float* U[MAXL];   // (in_l) layer inputs; U[0] is the encoded x
-  float* S[MAXL];   // (out_l) sigmoid(100 z_l), l < L-1
-  float* R[MAXL];   // (out_l) spatial-gradient chain r_l; R[L-1] = DY
-  float* SH[MAXL];  // (out_l) carry_{l+1}, then s_hat_l in place, l < L-1
-  float* QH[MAXL];  // (in_l) q_hat_l; QH[0] = GB
+  float* QH[MAXL];  // (in_l) q_hat_l; QH[0] is gbar through the PE Jacobian^T
+  float* R[MAXL];   // (out_l) spatial-gradient chain r_l; R[L-1] = dy
   float* ZH[MAXL];  // (out_l) z_hat_l
-  float* GB;        // (d0p) gbar through the PE-Jacobian transpose
-  float* DY;        // (1) d udf / d y0
-  float* RH;        // (1) r_hat of the last layer (square head)
+  float* S[MAXL];   // side (out_l) sigmoid(100 z_l), l < L-1
+  float* SH[MAXL];  // side (out_l) carry_{l+1}, then s_hat_l, l < L-1
 };
 
 long long bwd_carve(const Layout& lay, float* base, size_t ld,
@@ -54,240 +65,333 @@ long long bwd_carve(const Layout& lay, float* base, size_t ld,
     row += rows;
     return p;
   };
-  const int L = lay.L;
-  s->GB = take(lay.d0p);
-  s->DY = take(1);
-  s->RH = take(1);
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; l < lay.L; ++l) {
     s->U[l] = take(lay.in[l]);
+    s->QH[l] = take(lay.in[l]);
+    s->R[l] = take(lay.out[l]);
     s->ZH[l] = take(lay.out[l]);
-    s->QH[l] = l == 0 ? s->GB : take(lay.in[l]);
-    if (l < L - 1) {
-      s->S[l] = take(lay.out[l]);
-      s->R[l] = take(lay.out[l]);
-      s->SH[l] = take(lay.out[l]);
-    } else {
-      s->S[l] = s->SH[l] = nullptr;
-      s->R[l] = s->DY;
-    }
+    const bool hidden = l < lay.L - 1;
+    s->S[l] = hidden ? take(side_rows(lay.out[l])) : nullptr;
+    s->SH[l] = hidden ? take(side_rows(lay.out[l])) : nullptr;
   }
   return row;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     per_point_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, const float* ubar,
                      const float* gbar, BwdScratch s, Layout lay, size_t ld) {
-  __shared__ float smem[BK * BMP + BK * P];
+  extern __shared__ float4 smem4[];
+  const TileSmem ts = tile_smem(lay);
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* act = ring + RING;              // (ar, SA) the chain's vector
+  float* X = act + (size_t)ts.ar * SA;    // (xr, SA) encoded input
+  float* GB = X + (size_t)ts.xr * SA;     // (xr, SA) q_hat_0
+  float* red = GB + (size_t)ts.xr * SA;   // (4, P) head partial sums
+  float* dyv = red + 4 * P;               // (P) dy, then z_hat_{L-1}
+  float* rh = dyv + P;                    // (P) r_hat of the head
   const size_t n0 = (size_t)blockIdx.x * P;
   const int L = lay.L, d0 = lay.d0, mr = lay.multires;
+  const Frag f = frag_points();
 
-  // x = PE(points) into U[0]; GB = (dPE/dx)^T gbar, blocked layout
-  encode_tile(pts, ld, n0, lay, s.U[0]);
-  for (int i = threadIdx.x; i < lay.d0p * P; i += NT) {
-    const int r = i / P;
-    const size_t n = n0 + i % P;
-    float v = 0.f;
-    if (r < 3) {
-      v = gbar[(size_t)r * ld + n] * lay.scale;
-    } else if (r < 3 + 6 * mr) {
-      const bool is_sin = r < 3 + 3 * mr;
-      const int q = is_sin ? r - 3 : r - 3 - 3 * mr;
-      const int k = q / 3, j = q % 3;
-      const float f = (float)(1 << k);
-      const float t = gbar[(size_t)j * ld + n] * lay.scale;
-      const float uf = pts[(size_t)j * ld + n] * lay.scale * f;
-      v = is_sin ? (f * cosf(uf)) * t : ((-f) * sinf(uf)) * t;
+  // x = PE(points); GB = (dPE/dx)^T gbar, blocked layout; both are layer
+  // 0's factors U_0 and Qhat_0
+  for (int i = threadIdx.x; i < ts.ar * SA; i += NT) act[i] = 0.f;
+  for (int i = threadIdx.x; i < ts.xr * SA; i += NT) {
+    const int r = i / SA, p = i % SA;
+    float x = 0.f, v = 0.f;
+    if (r < lay.d0p && p < P) {
+      const size_t n = n0 + p;
+      x = encode_row(pts, ld, n, r, lay);
+      if (r < 3) {
+        v = gbar[(size_t)r * ld + n] * lay.scale;
+      } else if (r < 3 + 6 * mr) {
+        const bool is_sin = r < 3 + 3 * mr;
+        const int q = is_sin ? r - 3 : r - 3 - 3 * mr;
+        const int k = q / 3, j = q % 3;
+        const float f = (float)(1 << k);
+        const float t = gbar[(size_t)j * ld + n] * lay.scale;
+        const float uf = pts[(size_t)j * ld + n] * lay.scale * f;
+        v = is_sin ? (f * cosf(uf)) * t : ((-f) * sinf(uf)) * t;
+      }
+      s.U[0][(size_t)r * ld + n] = x;
+      s.QH[0][(size_t)r * ld + n] = v;
     }
-    s.GB[(size_t)r * ld + n] = v;
-  }
-  __syncthreads();
-  // the x rows of the skip layers' inputs and of their q_hat
-  for (int l = 1; l < L; ++l) {
-    if (!lay.skip[l]) continue;
-    const int c = lay.out[l - 1];
-    for (int i = threadIdx.x; i < d0 * P; i += NT) {
-      const int r = i / P;
-      const size_t n = n0 + i % P;
-      s.U[l][(size_t)(c + r) * ld + n] = s.U[0][(size_t)r * ld + n] * INV_SQRT2;
-      s.QH[l][(size_t)(c + r) * ld + n] = s.GB[(size_t)r * ld + n] * INV_SQRT2;
-    }
+    X[i] = x;
+    GB[i] = v;
   }
   __syncthreads();
 
   // forward recompute: u_{l+1} = softplus(100 z_l)/100 (x 1/sqrt2 before a
-  // skip), s_l = sigmoid(100 z_l); dy from the head
-  for (int l = 0; l < L; ++l) {
-    const Rows src{s.U[l], lay.in[l], s.U[l], 1.f};
-    const float* Wl = W + lay.off[l];
-    if (l < L - 1) {
-      const float sc = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
-      float* u_out = s.U[l + 1];
-      float* s_out = s.S[l];
-      tile_gemm<false>(Wl, lay.ldw, lay.out[l], lay.in[l], src, ld, n0, smem,
-                       [&](int m, int p, float acc) {
-                         const size_t i = (size_t)m * ld + n0 + p;
-                         const float z = acc + B[m * L + l];
-                         u_out[i] = softplus100(z) * sc;
-                         s_out[i] = sigmoid100(z);
-                       });
-    } else {
-      tile_gemm<false>(Wl, lay.ldw, 1, lay.in[l], src, ld, n0, smem,
-                       [&](int, int p, float acc) {
-                         const float y0 = acc + B[l];
-                         float dy;
-                         if (lay.udf_type == 0) dy = sign_of(y0) / lay.scale;
-                         else if (lay.udf_type == 1) dy = 2.f * y0 / lay.scale;
-                         else dy = 1.f / lay.scale;
-                         s.DY[n0 + p] = dy;
-                       });
-    }
+  // skip, with the x rows appended), s_l = sigmoid(100 z_l); dy from the head
+  Acc acc;
+  for (int l = 0; l < L - 1; ++l) {
+    const int M = lay.out[l];
+    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : X,
+                      ring, acc);
+    const bool skip = lay.skip[l + 1] != 0;
+    float* S = s.S[l];
+    float* U = s.U[l + 1];
+    for_groups(M, [&](int mt, int nt) {
+      float sig[4], a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = frag_m(f, mt, e);
+        sig[e] = a[e] = 0.f;
+        if (m < M) {
+          sig_softplus100(acc[mt][nt][e] + B[m * L + l], sig[e], a[e]);
+          if (skip) a[e] *= INV_SQRT2;
+          act[m * SA + frag_p(f, nt, e)] = a[e];
+        }
+      }
+      *side(S, M, mt, nt) = make_float4(sig[0], sig[1], sig[2], sig[3]);
+#pragma unroll
+      for (int h = 0; h < 4; h += 2)
+        if (frag_m(f, mt, h) < M)
+          store2(U, ld, n0, frag_m(f, mt, h), frag_p(f, nt, 0), a[h],
+                 a[h + 1]);
+    });
+    if (skip)
+      for (int i = threadIdx.x; i < d0 * P; i += NT) {
+        const int r = i / P, p = i % P;
+        const float x = X[r * SA + p] * INV_SQRT2;
+        act[(M + r) * SA + p] = x;
+        U[(size_t)(M + r) * ld + n0 + p] = x;
+      }
+    __syncthreads();
   }
+  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, dyv);
+  if (threadIdx.x < P) {
+    const float y0 = dyv[threadIdx.x] + B[L - 1];
+    float dy;
+    if (lay.udf_type == 0) dy = sign_of(y0) / lay.scale;
+    else if (lay.udf_type == 1) dy = 2.f * y0 / lay.scale;
+    else dy = 1.f / lay.scale;
+    dyv[threadIdx.x] = dy;
+    s.R[L - 1][n0 + threadIdx.x] = dy;
+  }
+  __syncthreads();
 
-  // spatial-gradient chain: q = W_l^T r_l, carry = non-x rows of q
-  // (scaled at a skip), r_{l-1} = carry * s_{l-1}
+  // spatial-gradient chain: q = W_l^T r_l, carry = non-x rows of q (scaled
+  // at a skip), r_{l-1} = carry * s_{l-1}
   for (int l = L - 1; l >= 1; --l) {
-    const Rows src{s.R[l], lay.out[l], s.R[l], 1.f};
-    const int c = lay.in[l] - (lay.skip[l] ? d0 : 0);
-    const float sc = lay.skip[l] ? INV_SQRT2 : 1.f;
-    float* carry_out = s.SH[l - 1];
-    float* r_out = s.R[l - 1];
-    const float* sprev = s.S[l - 1];
-    tile_gemm<true>(W + lay.off[l], lay.ldw, c, lay.out[l], src, ld, n0, smem,
-                    [&](int m, int p, float q) {
-                      const size_t i = (size_t)m * ld + n0 + p;
-                      const float carry = lay.skip[l] ? q * sc : q;
-                      carry_out[i] = carry;
-                      r_out[i] = carry * sprev[i];
-                    });
+    if (l == L - 1)
+      head_outer(W + lay.off[l], lay.in[l], dyv, acc);
+    else
+      tc_product<true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
+                       ring, acc);
+    const bool skip = lay.skip[l] != 0;
+    const int c = lay.out[l - 1];  // the non-x rows of q
+    const float* S = s.S[l - 1];
+    float* SH = s.SH[l - 1];
+    float* R = s.R[l - 1];
+    for_groups(c, [&](int mt, int nt) {
+      const float4 sv = *side(S, c, mt, nt);
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      float carry[4], r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float q = acc[mt][nt][e];
+        carry[e] = skip ? q * INV_SQRT2 : q;
+        r[e] = carry[e] * sg[e];
+        const int m = frag_m(f, mt, e);
+        if (m < c) act[m * SA + frag_p(f, nt, e)] = r[e];
+      }
+      *side(SH, c, mt, nt) =
+          make_float4(carry[0], carry[1], carry[2], carry[3]);
+#pragma unroll
+      for (int h = 0; h < 4; h += 2)
+        if (frag_m(f, mt, h) < c)
+          store2(R, ld, n0, frag_m(f, mt, h), frag_p(f, nt, 0), r[h],
+                 r[h + 1]);
+    });
+    __syncthreads();
   }
 
   // ascend: r_hat = W_l q_hat_l; s_hat_l = r_hat * carry_{l+1};
-  // q_hat_{l+1} = r_hat * s_l (x 1/sqrt2 before a skip)
-  for (int l = 0; l < L; ++l) {
-    const Rows src{s.QH[l], lay.in[l], s.QH[l], 1.f};
-    const float* Wl = W + lay.off[l];
-    if (l < L - 1) {
-      const float sc = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
-      float* sh = s.SH[l];
-      float* qh_out = s.QH[l + 1];
-      const float* sl = s.S[l];
-      tile_gemm<false>(Wl, lay.ldw, lay.out[l], lay.in[l], src, ld, n0, smem,
-                       [&](int m, int p, float rh) {
-                         const size_t i = (size_t)m * ld + n0 + p;
-                         sh[i] = rh * sh[i];
-                         const float ch = rh * sl[i];
-                         qh_out[i] = lay.skip[l + 1] ? ch * sc : ch;
-                       });
-    } else {
-      tile_gemm<false>(Wl, lay.ldw, 1, lay.in[l], src, ld, n0, smem,
-                       [&](int, int p, float rh) { s.RH[n0 + p] = rh; });
-    }
+  // q_hat_{l+1} = r_hat * s_l (x 1/sqrt2 before a skip, with the x rows of
+  // gbar appended)
+  for (int l = 0; l < L - 1; ++l) {
+    const int M = lay.out[l];
+    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : GB,
+                      ring, acc);
+    const bool skip = lay.skip[l + 1] != 0;
+    const float* S = s.S[l];
+    float* SH = s.SH[l];
+    float* QH = s.QH[l + 1];
+    for_groups(M, [&](int mt, int nt) {
+      float4* shp = side(SH, M, mt, nt);
+      const float4 cv = *shp, sv = *side(S, M, mt, nt);
+      const float carry[4] = {cv.x, cv.y, cv.z, cv.w};
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      float sh[4], q[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = acc[mt][nt][e];
+        sh[e] = r * carry[e];
+        const float ch = r * sg[e];
+        q[e] = skip ? ch * INV_SQRT2 : ch;
+        const int m = frag_m(f, mt, e);
+        if (m < M) act[m * SA + frag_p(f, nt, e)] = q[e];
+      }
+      *shp = make_float4(sh[0], sh[1], sh[2], sh[3]);
+#pragma unroll
+      for (int h = 0; h < 4; h += 2)
+        if (frag_m(f, mt, h) < M)
+          store2(QH, ld, n0, frag_m(f, mt, h), frag_p(f, nt, 0), q[h],
+                 q[h + 1]);
+    });
+    if (skip)
+      for (int i = threadIdx.x; i < d0 * P; i += NT) {
+        const int r = i / P, p = i % P;
+        const float g = GB[r * SA + p] * INV_SQRT2;
+        act[(M + r) * SA + p] = g;
+        QH[(size_t)(M + r) * ld + n0 + p] = g;
+      }
+    __syncthreads();
   }
+  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, rh);
 
   // descend: z_hat_{L-1} = ubar * dy (+ r_hat * 2/scale, square head);
   // a_hat = non-x rows of W_l^T z_hat_l (scaled at a skip);
   // z_hat_{l-1} = a_hat * s + s_hat * (100 s (1 - s))
-  for (int p = threadIdx.x; p < P; p += NT) {
-    const size_t n = n0 + p;
-    float z = ubar[n] * s.DY[n];
-    if (lay.udf_type == 1) z = z + s.RH[n] * (2.f / lay.scale);
+  if (threadIdx.x < P) {
+    const size_t n = n0 + threadIdx.x;
+    float z = ubar[n] * dyv[threadIdx.x];
+    if (lay.udf_type == 1) z = z + rh[threadIdx.x] * (2.f / lay.scale);
+    dyv[threadIdx.x] = z;
     s.ZH[L - 1][n] = z;
   }
   __syncthreads();
   for (int l = L - 1; l >= 1; --l) {
-    const Rows src{s.ZH[l], lay.out[l], s.ZH[l], 1.f};
-    const int c = lay.in[l] - (lay.skip[l] ? d0 : 0);
-    const float sc = lay.skip[l] ? INV_SQRT2 : 1.f;
-    float* zh_out = s.ZH[l - 1];
-    const float* sprev = s.S[l - 1];
-    const float* shprev = s.SH[l - 1];
-    tile_gemm<true>(W + lay.off[l], lay.ldw, c, lay.out[l], src, ld, n0, smem,
-                    [&](int m, int p, float uh) {
-                      const size_t i = (size_t)m * ld + n0 + p;
-                      const float a = lay.skip[l] ? uh * sc : uh;
-                      const float sv = sprev[i];
-                      zh_out[i] = a * sv + shprev[i] * ((100.f * sv) * (1.f - sv));
-                    });
+    if (l == L - 1)
+      head_outer(W + lay.off[l], lay.in[l], dyv, acc);
+    else
+      tc_product<true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
+                       ring, acc);
+    const bool skip = lay.skip[l] != 0;
+    const int c = lay.out[l - 1];  // the non-x rows of W_l^T z_hat_l
+    const float* S = s.S[l - 1];
+    const float* SH = s.SH[l - 1];
+    float* ZH = s.ZH[l - 1];
+    for_groups(c, [&](int mt, int nt) {
+      const float4 sv = *side(S, c, mt, nt), hv = *side(SH, c, mt, nt);
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      const float sh[4] = {hv.x, hv.y, hv.z, hv.w};
+      float z[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float uh = acc[mt][nt][e];
+        const float a = skip ? uh * INV_SQRT2 : uh;
+        z[e] = a * sg[e] + sh[e] * ((100.f * sg[e]) * (1.f - sg[e]));
+        const int m = frag_m(f, mt, e);
+        if (m < c) act[m * SA + frag_p(f, nt, e)] = z[e];
+      }
+#pragma unroll
+      for (int h = 0; h < 4; h += 2)
+        if (frag_m(f, mt, h) < c)
+          store2(ZH, ld, n0, frag_m(f, mt, h), frag_p(f, nt, 0), z[h],
+                 z[h + 1]);
+    });
+    __syncthreads();
   }
 }
 
-// One (layer, 64-row block, 64-column block, point range) per block:
-// wpart[split][o][off_l + i] = sum_n r_l[o,n] qhat_l[i,n] + zhat_l[o,n] u_l[i,n]
-// and, for the first column block, bpart[split][o][l] = sum_n zhat_l[o,n].
-__global__ void __launch_bounds__(NT)
-    wbar_partials_kernel(BwdScratch s, Layout lay, size_t ld, int tiles,
-                         float* wpart, float* bpart) {
-  __shared__ float As[BN * BMP];
-  __shared__ float Bs[BN * BMP];
-  const int t = blockIdx.x;
-  const int l = t / (tiles * tiles), ot = (t / tiles) % tiles, it = t % tiles;
-  const int o0 = ot * BM, i0 = it * BM;
+// One 128 x 128 output block of one layer's weight gradient.
+struct WTile {
+  int l, o0, i0;
+};
+struct WTiles {
+  int count;
+  WTile t[MAXT];
+};
+
+// Per (tile, point range): wpart[split][o][off_l + i] =
+//   sum_n r_l[o,n] qhat_l[i,n] + zhat_l[o,n] u_l[i,n]
+// and, for the tiles at i0 = 0, bpart[split][o][l] = sum_n zhat_l[o,n].
+__global__ void __launch_bounds__(NT, 1)
+    wbar_partials_kernel(BwdScratch s, Layout lay, size_t ld, WTiles tiles,
+                         size_t chunk, float* wpart, float* bpart) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // 2 x (A, B) chunks
+  const WTile t = tiles.t[blockIdx.x];
+  const int l = t.l, o0 = t.o0, i0 = t.i0;
   const int out = lay.out[l], in = lay.in[l];
-  if (o0 >= out || i0 >= in) return;  // uniform over the block
-  const size_t chunk = ((ld + KS - 1) / KS + BN - 1) / BN * BN;
   const size_t nb = (size_t)blockIdx.y * chunk;
   const size_t ne = nb + chunk < ld ? nb + chunk : ld;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nch = nb < ne ? (int)((ne - nb) / KW) : 0;  // per factor pair
+  const bool bias = i0 == 0;
+  const Frag f = frag_wbar();
+  constexpr int SLOT2 = 2 * BT * SWB;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  auto load = [&](int c) {
+    float* a = ring + (c & 1) * SLOT2;
+    float* b = a + BT * SWB;
+    const bool second = c >= nch;
+    const size_t n = nb + (size_t)(second ? c - nch : c) * KW;
+    const float* Ap = second ? s.ZH[l] : s.R[l];
+    const float* Bp = second ? s.U[l] : s.QH[l];
+    for (int q = threadIdx.x; q < BT * (KW / 4); q += NT) {
+      const int r = q / (KW / 4), kk = (q % (KW / 4)) * 4;
+      const bool oka = o0 + r < out, okb = i0 + r < in;
+      cp16(a + r * SWB + kk, oka ? Ap + (size_t)(o0 + r) * ld + n + kk : Ap,
+           oka);
+      cp16(b + r * SWB + kk, okb ? Bp + (size_t)(i0 + r) * ld + n + kk : Bp,
+           okb);
+    }
+    cp_commit();
+  };
 
-  for (int seg = 0; seg < 2; ++seg) {
-    const float* Ap = seg ? s.ZH[l] : s.R[l];
-    const float* Bp = seg ? s.U[l] : s.QH[l];
-    for (size_t n = nb; n < ne; n += BN) {
-      for (int i = tid; i < BN * BM; i += NT) {
-        const int kk = i % BN, rr = i / BN;
-        const size_t nn = n + kk;
-        const bool live = nn < ne;
-        As[kk * BMP + rr] =
-            live && o0 + rr < out ? Ap[(size_t)(o0 + rr) * ld + nn] : 0.f;
-        Bs[kk * BMP + rr] =
-            live && i0 + rr < in ? Bp[(size_t)(i0 + rr) * ld + nn] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BN; ++kk) {
-        float a[4], b[4];
+  Acc acc;
+  zero_acc(acc);
+  float bsum = 0.f;  // thread's half of row tid / 2's z_hat sum
+  const int total = 2 * nch;
+  if (total > 0) load(0);
+  for (int c = 0; c < total; ++c) {
+    // chunk c has landed for every thread, and every warp is past chunk
+    // c - 1, whose slot the next load takes
+    cp_wait<0>();
+    __syncthreads();
+    if (c + 1 < total) load(c + 1);
+    const float* a = ring + (c & 1) * SLOT2;
+    const float* b = a + BT * SWB;
+    Acc part;
+    zero_acc(part);
+    mma_chunk<KW>(
+        part, f, out - o0,
+        [&](int m, int kk, unsigned& h, unsigned& lo) {
+          split3(a[m * SWB + kk], h, lo);
+        },
+        [&](int kk, int i, unsigned& h, unsigned& lo) {
+          split3(b[i * SWB + kk], h, lo);
+        });
+    add_acc(acc, part);
+    if (bias && c >= nch) {
+      const float* row = a + (threadIdx.x >> 1) * SWB + (threadIdx.x & 1) * 16;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk * BMP + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk * BMP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+      for (int j = 0; j < 16; ++j) bsum += row[j];
     }
   }
+  __syncthreads();
+
   float* wp = wpart + (size_t)blockIdx.y * lay.rmax * lay.ldw;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = o0 + ty + 16 * i;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = i0 + tx + 16 * j;
-      if (o < out && c < in) wp[(size_t)o * lay.ldw + lay.off[l] + c] = acc[i][j];
-    }
-  }
-
-  if (it == 0) {
-    const int warp = tid / 32, lane = tid % 32;
-    float* bp = bpart + (size_t)blockIdx.y * lay.rmax * lay.L;
-    for (int rr = warp; rr < BM; rr += NT / 32) {
-      const int o = o0 + rr;
-      if (o >= out) break;
-      float sum = 0.f;
-      for (size_t nn = nb + lane; nn < ne; nn += 32)
-        sum += s.ZH[l][(size_t)o * ld + nn];
-      for (int d = 16; d > 0; d /= 2) sum += __shfl_down_sync(0xffffffffu, sum, d);
-      if (lane == 0) bp[o * lay.L + l] = sum;
-    }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = o0 + frag_m(f, mt, e), i = i0 + frag_p(f, nt, e);
+        if (o < out && i < in)
+          wp[(size_t)o * lay.ldw + lay.off[l] + i] = acc[mt][nt][e];
+      }
+  if (bias) {
+    ring[threadIdx.x] = bsum;  // every read of the ring has ended
+    __syncthreads();
+    const int o = o0 + (int)threadIdx.x;
+    if (threadIdx.x < BT && o < out)
+      bpart[(size_t)blockIdx.y * lay.rmax * lay.L + o * lay.L + l] =
+          ring[2 * threadIdx.x] + ring[2 * threadIdx.x + 1];
   }
 }
 
@@ -307,11 +411,12 @@ __global__ void reduce_partials_kernel(const float* part, float* out,
 extern "C" {
 
 // Scratch the wrapper allocates: rows (x n floats) of per-point factors and
-// the floats of the weight/bias partials. 0 on success, 1 on a bad layout.
+// the floats of the weight/bias partials. 0 on success, 1 on a layout the
+// kernels do not take.
 int emap_mlp_train_bwd_sizes(const int* layout, long long* scratch_rows,
                              long long* partial_floats) {
   Layout lay;
-  if (parse_layout(layout, 1.f, &lay)) return 1;
+  if (parse_tc(layout, 1.f, &lay)) return 1;
   BwdScratch s;
   *scratch_rows = bwd_carve(lay, nullptr, 0, &s);
   *partial_floats = (long long)KS * lay.rmax * (lay.ldw + lay.L);
@@ -320,21 +425,32 @@ int emap_mlp_train_bwd_sizes(const int* layout, long long* scratch_rows,
 
 // pts (8, n), W (rmax, ldw), B (rmax, L), ubar (n,), gbar (8, n)
 // -> wbar (rmax, ldw), bbar (rmax, L); fp32, contiguous, on the device; n a
-// multiple of 64. Returns the first nonzero cudaGetLastError().
+// multiple of 64. Returns the first nonzero CUDA error (shared-memory
+// opt-ins, launches, the partials' memset).
 int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
                        const float* ubar, const float* gbar, float* wbar,
                        float* bbar, float* scratch, float* partials,
                        long long n, const int* layout, float scale,
                        void* stream) {
   Layout lay;
-  if (parse_layout(layout, scale, &lay) || n <= 0 || n % P)
+  if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   BwdScratch s;
   bwd_carve(lay, scratch, (size_t)n, &s);
-  per_point_kernel<<<(unsigned)(n / P), NT, 0, st>>>(pts, W, B, ubar, gbar, s,
-                                                     lay, (size_t)n);
-  int err = (int)cudaGetLastError();
+  const size_t pp_bytes = tile_smem(lay).floats() * sizeof(float);
+  const size_t wb_bytes = 2 * 2 * BT * SWB * sizeof(float);
+  int err = (int)cudaFuncSetAttribute(
+      per_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pp_bytes);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        wbar_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)wb_bytes);
+  if (err) return err;
+  per_point_kernel<<<(unsigned)(n / P), NT, pp_bytes, st>>>(
+      pts, W, B, ubar, gbar, s, lay, (size_t)n);
+  err = (int)cudaGetLastError();
   if (err) return err;
 
   const size_t wcount = (size_t)lay.rmax * lay.ldw;
@@ -344,9 +460,16 @@ int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
   err = (int)cudaMemsetAsync(partials, 0,
                              (size_t)KS * (wcount + bcount) * sizeof(float), st);
   if (err) return err;
-  const int tiles = (lay.smax + BM - 1) / BM;
-  wbar_partials_kernel<<<dim3(lay.L * tiles * tiles, KS), NT, 0, st>>>(
-      s, lay, (size_t)n, tiles, wpart, bpart);
+  WTiles tiles;
+  tiles.count = 0;
+  for (int l = 0; l < lay.L; ++l)
+    for (int o0 = 0; o0 < lay.out[l]; o0 += BT)
+      for (int i0 = 0; i0 < lay.in[l]; i0 += BT)
+        tiles.t[tiles.count++] = WTile{l, o0, i0};
+  const size_t chunk =
+      ((size_t)(n + KS - 1) / KS + KW - 1) / KW * KW;  // multiple of KW
+  wbar_partials_kernel<<<dim3(tiles.count, KS), NT, wb_bytes, st>>>(
+      s, lay, (size_t)n, tiles, chunk, wpart, bpart);
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_partials_kernel<<<264, NT, 0, st>>>(wpart, wbar, wcount);

@@ -34,7 +34,8 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu (by source hash)."""
     h = hashlib.sha256()
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
@@ -50,7 +51,7 @@ def build_all(names=SOURCES) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, times = {}, {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if os.path.exists(out):
             times[name] = 0.0
             continue
@@ -78,7 +79,7 @@ def build_all(names=SOURCES) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built if it is missing."""
     if name not in _loaded:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not os.path.exists(path):
             build_all((name,))
         _loaded[name] = ctypes.CDLL(path)
@@ -87,7 +88,7 @@ def load(name: str) -> ctypes.CDLL:
 
 def build_log(name: str) -> str:
     """nvcc's output (-Xptxas -v: registers, shared memory, spills)."""
-    path = _lib_path(name) + ".log"
+    path = lib_path(name) + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as f:

@@ -36,9 +36,10 @@ from emap_tpu_torch.fields.udf import UDFConfig, effective_weight, softplus100
 
 POINT_TILE = 64  # points per CUDA block (csrc/mlp_common.cuh: P)
 # Most points a value_and_grad launch takes in value_and_grad_sliced: the
-# kernel's scratch is ~3,140 rows x N floats (3.3 GB at ABC width for this
-# cap, ~41 GB for a whole 3,276,800-point line-direction sweep). At least
-# the training step's 116,736 points, so a step stays one launch.
+# kernel's scratch is its sigmoid residuals, 2,000 rows x N floats at ABC
+# width (2.1 GB for this cap, ~26 GB for a whole 3,276,800-point
+# line-direction sweep). At least the training step's 116,736 points, so a
+# step stays one launch.
 SLICE_CAP = 262_144
 INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
 _UDF_TYPES = {"abs": 0, "square": 1, "sdf": 2}
@@ -129,13 +130,20 @@ def kernel_layout(cfg: UDFConfig) -> np.ndarray:
 
 def check_kernel_cfg(cfg: UDFConfig) -> None:
     """The shapes the fused kernels take: PE on 3-D points, a scalar head,
-    no layer wider than 256."""
+    no layer wider than 256, every layer's input a multiple of 4 wide (the
+    tensor-core kernels copy weight rows in 16-byte pieces:
+    csrc/mlp_mma.cuh, tc_layout_ok)."""
     if cfg.d_in != 3 or cfg.multires <= 0 or cfg.d_out != 1:
         raise ValueError("the fused kernels need d_in=3, multires>0, d_out=1;"
                          ' set pallas_train = "off" for other nets')
-    if max(max(i, o) for i, o in layer_dims(cfg)) > 256:
+    dims = layer_dims(cfg)
+    if max(max(i, o) for i, o in dims) > 256:
         raise ValueError("the fused kernels take layers up to 256 wide; set "
                          'pallas_train = "off" for wider nets')
+    if any(i % 4 for i, _ in dims):
+        raise ValueError("the fused kernels take layer inputs a multiple of 4 "
+                         'wide (d_hidden % 4 == 0); set pallas_train = "off" '
+                         "for other nets")
 
 
 def pe_freqs(cfg: UDFConfig):

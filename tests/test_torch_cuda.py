@@ -85,6 +85,48 @@ def test_cuda_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_training_kernels_are_deterministic(cuda, name):
+    """Two launches of each training kernel on the same inputs agree in
+    every bit: udf, grad, W-bar and b-bar (no atomics; the weight-gradient
+    partials are summed in a fixed order)."""
+    cfg = CFGS[name]
+    x, ubar, gbar = points(8192, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    runs = [tq.value_and_grad(x, w, b, cfg)
+            + tt.train_bwd(x, w, b, ubar, gbar, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_training_kernels_match_plain_at_step_n(cuda):
+    """At ABC width and the training step's N = 1,024 rays x 114 samples =
+    116,736 points: both kernels against their plain versions, max rel 1e-4
+    per block (udf, grad, each layer's W-bar and b-bar)."""
+    cfg = CFGS["abc"]
+    x, ubar, gbar = points(116_736, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+
+    def blocks(query, bwd):
+        return list(query) + [t for layer in tq.unpack_weights(*bwd, cfg)
+                              for t in layer]
+
+    got = blocks(tq.value_and_grad(x, w, b, cfg),
+                 tt.train_bwd(x, w, b, ubar, gbar, cfg))
+    torch.cuda.synchronize()
+    want = blocks(tq.value_and_grad_plain(x, w, b, cfg),
+                  tt.train_bwd_plain(x, w, b, ubar, gbar, cfg))
+    assert len(got) == len(want) == 2 + 2 * 9
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all())
+        assert max_rel(g, wt) < 1e-4, i
+
+
+@pytest.mark.cuda
 def test_cuda_train_query_grads_match_autograd(cuda):
     """(g, v, b) gradients of a loss on the value and the spatial gradient:
     the kernel pair through its autograd.Function vs double-backward

@@ -219,6 +219,8 @@ def test_kernel_operands_are_checked():
         tq.check_kernel_cfg(dataclasses.replace(tcfg, multires=0))
     with pytest.raises(ValueError, match="256"):
         tq.check_kernel_cfg(dataclasses.replace(tcfg, d_hidden=320))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tq.check_kernel_cfg(dataclasses.replace(tcfg, d_hidden=30))
 
 
 def test_layout_and_work_at_abc_width():

@@ -95,20 +95,22 @@ def test_unported_render_options_raise(option):
 
 
 def test_query_field_refuses_nets_the_kernels_do_not_take():
-    """With the fused query on, a net the kernels do not take (here a
-    two-channel head) raises, on the CPU as on the card; pallas_train = "off"
-    takes plain autograd for it."""
-    cfg = tudf.UDFConfig(d_out=2, **TOY)
-    params = {"udf": tudf.init_udf_params(torch.Generator().manual_seed(0),
-                                          cfg, device="cpu")}
+    """With the fused query on, a net the kernels do not take (a
+    two-channel head; a hidden width that is not a multiple of 4) raises, on
+    the CPU as on the card; pallas_train = "off" takes plain autograd for
+    it."""
     pts = torch.rand(10, 3, generator=torch.Generator().manual_seed(1))
-    with pytest.raises(ValueError, match="pallas_train"):
-        tr.query_field(params, pts, cfg)
-    off = dataclasses.replace(cfg, pallas_train="off")
-    u, g = tr.query_field(params, pts, off)
-    uw, gw = tudf.udf_value_and_gradient(params["udf"], pts, off)
-    assert u.shape == (10,) and g.shape == (10, 3)
-    assert torch.equal(u, uw) and torch.equal(g, gw)
+    for cfg in (tudf.UDFConfig(d_out=2, **TOY),
+                tudf.UDFConfig(**dict(TOY, d_hidden=30))):
+        params = {"udf": tudf.init_udf_params(
+            torch.Generator().manual_seed(0), cfg, device="cpu")}
+        with pytest.raises(ValueError, match="pallas_train"):
+            tr.query_field(params, pts, cfg)
+        off = dataclasses.replace(cfg, pallas_train="off")
+        u, g = tr.query_field(params, pts, off)
+        uw, gw = tudf.udf_value_and_gradient(params["udf"], pts, off)
+        assert u.shape == (10,) and g.shape == (10, 3)
+        assert torch.equal(u, uw) and torch.equal(g, gw)
 
 
 def test_stratified_z_vals():
