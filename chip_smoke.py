@@ -6,16 +6,17 @@
 Phases, each fatal on failure (nonzero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
-     and count the tensor-core instructions (HMMA) in the training kernels'
-     SASS;
+     and count the tensor-core instructions (HMMA) in every kernel
+     library's SASS;
   3. hold each kernel against its plain PyTorch version on the card, output
      block by block, and time both at the shapes its path gives it, beside
      the reckoned bounds (fp32 FMA; the tensor cores at one TF32 pass and
      at the design's three) and the achieved rate: the training query and backward at the step's
      N = 1024 rays x 114 samples = 116,736 points, and the extraction's
-     grid value query at a 128^3 grid pass (2,097,152 points); two
-     launches of each training kernel on the same inputs must agree bit for
-     bit;
+     grid value query at its two launch shapes, a 128^3 grid pass
+     (2,097,152 points, the ABC conf) and one GRID_CHUNK of a 256^3 pass
+     (4,194,304 points, the DTU and Replica confs); two launches of each
+     kernel on the same inputs must agree bit for bit;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it, train END_ITER steps at full ABC width through
      `emap_tpu_torch.cli.main(... --mode train)` with one validation at the
@@ -29,7 +30,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
   6. regress the ABC-width field onto the analytic UDF of the cube's 12
      edges, save it as the run's checkpoint and run
      `emap_tpu_torch.cli.main(... --mode extract_edge)` with the ABC conf's
-     edge_extraction block unchanged; check that the extraction kernels
+     edge_extraction block unchanged, after counting, for each candidate
+     threshold, the grid points whose near-surface masks differ between the
+     grid value kernel and its plain version; check that the extraction kernels
      launched as often as the candidate counts reckon, that the four result
      files exist, and that the fitted edges lie on the cube's edges; then
      hold the sliced value-and-gradient query against its plain version at
@@ -82,6 +85,10 @@ GRID_N = 128 ** 3  # confs/ABC.conf edge_extraction.resolution
 # 128^3 grid from the true edges (median).
 REGRESS_STEPS = 1500
 EDGE_MEDIAN_MAX = 2.0 / 127
+# Grid points whose near-surface mask (udf <= threshold) may differ between
+# the grid value kernel and its plain version, as a share of the grid: only
+# points within the two's ~1e-6 relative roundoff of a threshold can flip.
+MASK_DIFF_MAX = 1e-4
 
 
 def smi_line() -> str:
@@ -211,7 +218,7 @@ def same_bits(name, kern, args, ucfg) -> None:
 
 def tensor_core_sass(names) -> None:
     """Count the tensor-core instructions (HMMA) in each library's SASS;
-    fail if a training kernel has none."""
+    fail if one has none."""
     import shutil
 
     from emap_tpu_torch.kernels import build
@@ -242,9 +249,10 @@ def packed_weights(ucfg):
 
 def kernel_phase(ucfg, n: int) -> list:
     """The training kernels at the step's shape and the grid value kernel
-    at a grid pass, each against its plain version."""
+    at its two launch shapes, each against its plain version."""
     import torch
 
+    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK
     from emap_tpu_torch.kernels import mlp_query, mlp_train
 
     w, b = packed_weights(ucfg)
@@ -267,9 +275,21 @@ def kernel_phase(ucfg, n: int) -> list:
               ucfg)
     same_bits("mlp_train_bwd", mlp_train.train_bwd, (x, w, b, ubar, gbar),
               ucfg)
+    same_bits("mlp_value", lambda *a: (mlp_query.value(*a),), (grid_x, w, b),
+              ucfg)
     f32 = 4
     pack_bytes = f32 * (w.numel() + b.numel())
-    return [
+
+    def value_row(points):
+        count = points.shape[1]
+        return kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
+                          value_blocks, (points, w, b), ucfg,
+                          "emap_tpu_torch/csrc/mlp_value.cu",
+                          "emap_tpu/kernels/mlp_query.py:328",
+                          f32 * (8 * count + count) + pack_bytes,
+                          mlp_query.value_flops(ucfg) * count)
+
+    rows = [
         kernel_row("mlp_value_and_grad", mlp_query.value_and_grad,
                    mlp_query.value_and_grad_plain, query_blocks, (x, w, b),
                    ucfg, "emap_tpu_torch/csrc/mlp_query.cu",
@@ -283,13 +303,12 @@ def kernel_phase(ucfg, n: int) -> list:
                    "emap_tpu/kernels/mlp_train.py:417",
                    f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
                    mlp_train.train_bwd_flops(ucfg) * n),
-        kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
-                   value_blocks, (grid_x, w, b), ucfg,
-                   "emap_tpu_torch/csrc/mlp_value.cu",
-                   "emap_tpu/kernels/mlp_query.py:328",
-                   f32 * (8 * GRID_N + GRID_N) + pack_bytes,
-                   mlp_query.value_flops(ucfg) * GRID_N),
+        value_row(grid_x),
     ]
+    # one GRID_CHUNK of a 256^3 pass: printed beside its bounds; the kernels
+    # line keeps the ABC pass, the shape this run's extraction launches
+    value_row(raw_points(gen, GRID_CHUNK))
+    return rows
 
 
 def sliced_row(ucfg, n: int) -> dict:
@@ -516,6 +535,35 @@ def regress_cube_field(ucfg):
             for k, layer in params.items()}
 
 
+def mask_disagreement(params, ucfg, res: int, thresholds) -> None:
+    """For each candidate threshold, the grid points whose near-surface mask
+    (max(udf, 0) <= t, as extract/pointcloud.py::grid_masks makes it)
+    differs between the grid value kernel and its plain version on the same
+    field and grid; fails above MASK_DIFF_MAX of the grid."""
+    import torch
+
+    from emap_tpu_torch.extract.pointcloud import grid_points
+    from emap_tpu_torch.kernels import mlp_query
+
+    count = res ** 3
+    w, b = (t.contiguous() for t in mlp_query.pack_weights(params, ucfg))
+    x = torch.zeros(8, count, device="cuda")
+    x[:3] = grid_points(0, count, res, "cuda").T
+    got = torch.clamp(mlp_query.value(x, w, b, ucfg), min=0.0)
+    want = torch.clamp(mlp_query.value_plain(x, w, b, ucfg), min=0.0)
+    diffs = {t: int(((got <= t) != (want <= t)).sum()) for t in thresholds}
+    print(f"extract: grid points of {count:,} whose mask differs between "
+          f"the grid value kernel and its plain version, by threshold: "
+          f"{diffs} (bar {MASK_DIFF_MAX * count:.0f})", flush=True)
+    check(max(diffs.values()) <= MASK_DIFF_MAX * count,
+          f"the grid value kernel's masks differ from its plain version's "
+          f"at {max(diffs.values())} grid points")
+    # the plain pass leaves ~10 GB in PyTorch's cache; hand it back so the
+    # extraction starts from the memory state it would have without it
+    del x, got, want
+    torch.cuda.empty_cache()
+
+
 def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     """Phase 6: `--mode extract_edge` with the ABC conf's edge_extraction
     block on the regressed cube field; the launches against a reckoning
@@ -548,6 +596,8 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
 
     ee = conf.get_config("edge_extraction")
     res, n_jitter = ee.get_int("resolution"), ee.get_int("sampling_N")
+    mask_disagreement(params, ucfg, res,
+                      [float(t) for t in ee.get_list("auto_threshold")])
     # what sets the peak: how far each device stage raises the running peak
     rises = {}
 
@@ -633,7 +683,8 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
                  "fit_score"):
         ts = stages.get(name, [])
         print(f"extract: stage {name}: {len(ts)} x, "
-              f"{sum(t['seconds'] for t in ts):.3f} s"
+              f"{sum(t['seconds'] for t in ts):.3f} s "
+              f"{[round(t['seconds'], 3) for t in ts]}"
               + (f", points {[t['points'] for t in ts]}"
                  if ts and "points" in ts[0] else ""), flush=True)
     fit_s = sum(t["seconds"] for t in stages.get("fit", []))
@@ -714,7 +765,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    tensor_core_sass(("mlp_query", "mlp_train"))
+    tensor_core_sass(build.SOURCES)
 
     abc = config.parse_file(os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "confs", "ABC.conf"))

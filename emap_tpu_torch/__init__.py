@@ -4,10 +4,10 @@ The layout mirrors `emap_tpu/` module for module. The port imports torch,
 numpy and the standard library only; it never imports jax or emap_tpu.
 
 Precision: every path of this package computes at float32 accuracy. The
-training field query's CUDA kernels multiply on the tensor cores with a
-3xTF32 split (csrc/mlp_mma.cuh), the grid value kernel in fp32 FMA, and
-torch matmuls run in full float32 with TF32 off (`use_fp32_matmuls`,
-called by the runner and `chip_smoke.py`). The
+field query's CUDA kernels (training, extraction sweeps and grid) multiply
+on the tensor cores with a 3xTF32 split (csrc/mlp_mma.cuh), and torch
+matmuls run in full float32 with TF32 off (`use_fp32_matmuls`, called by
+the runner and `chip_smoke.py`). The
 conf keys `precision`, `field_precision`, `sampler_precision` and
 `bwd_precision` are parsed but do not yet select a tier.
 """

@@ -1,5 +1,6 @@
-// Tensor-core tile products of the training field query (mlp_query.cu,
-// mlp_train.cu): mma.sync m16n8k8 TF32 with a 3xTF32 split, fp32-accurate.
+// Tensor-core tile products of the fused field queries (mlp_query.cu,
+// mlp_train.cu, mlp_value.cu): mma.sync m16n8k8 TF32 with a 3xTF32 split,
+// fp32-accurate.
 //
 // Numbers: each operand x is split into hi = rna(x) and lo = rna(x - hi),
 // rna the rounding of cvt.rna.tf32.f32 (10 mantissa bits, ties away from

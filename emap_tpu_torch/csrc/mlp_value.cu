@@ -1,4 +1,5 @@
-// Fused UDF field query, value only: the dense extraction grid.
+// Fused UDF field query, value only: the dense extraction grid, on the
+// tensor cores.
 //
 // Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value (reached through
 // pallas_udf_value from the grid pass of emap_tpu/extract/pointcloud.py and
@@ -6,76 +7,88 @@
 //
 // Computes, per point: the in-kernel PE encode, 9 linears with
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), then the
-// abs/square/sdf head divided by scale. No reverse pass, no residuals.
-// Out: udf (ld,).
+// abs/square/sdf head divided by scale. No reverse pass, no residuals, no
+// device scratch. Out: udf (ld,).
 //
 // Bound on the H100: operations. 2 * sum(in_l * out_l) FLOP a point
 // (0.92 MFLOP at ABC width) against 36 bytes of input and output a point;
-// a 128^3 grid pass (2,097,152 points) is 1.93 TFLOP, >= 28.7 ms at the fp32
-// FMA peak (67 TFLOP/s).
-// Design: a forward pass keeps only two activation vectors a point, so the
-// whole tile lives in shared memory: one block of 256 threads walks 64
-// points through every layer with the encoded input (d0p x 64) and two
-// activation buffers (smax x 64, ping-pong) in dynamic shared memory,
-// 152 KB at ABC width (one block per SM). No device scratch: the launch
-// allocates nothing beyond its input and output. Weights stream from L2
-// through tile_gemm's 16-deep shared-memory stages; each thread accumulates
-// a 4 x 4 register tile in fp32 FMA.
+// a 128^3 grid pass (2,097,152 points) is 1.93 TFLOP: >= 28.7 ms at the
+// fp32 FMA peak (67 TFLOP/s), >= 3.9 ms for one TF32 pass at the
+// tensor-core peak (495 TFLOP/s) and >= 11.7 ms for the three of the split.
+// Design: the forward half of mlp_query.cu's kernel. The 8 hidden products
+// run as 3xTF32 mma.sync tile products (mlp_mma.cuh: tc_product, fp32
+// accuracy, sums promoted every 32 contraction steps); the one-row head is
+// fp32 FMA. One block of 8 warps walks a 64-point tile through every layer
+// with its activations and encoded input in shared memory (167 KB at ABC
+// width with the weight ring: one block per SM); the tile never leaves the
+// SM. scripts/torch_kernel_ablation.py measures the alternatives (a
+// 128-point tile, weights split once a launch, one weight stream over all
+// layers).
 
-#include "mlp_common.cuh"
+#include "mlp_mma.cuh"
 
 using namespace emap;
 
 namespace {
 
-// Floats of dynamic shared memory a block takes: tile_gemm's stages, the
-// encoded tile and two activation buffers.
-size_t value_smem_floats(const Layout& lay) {
-  return (size_t)BK * BMP + (size_t)BK * P + (size_t)lay.d0p * P +
-         2 * (size_t)lay.smax * P;
+// Shared-memory floats of a block: the ring, the tile (act), the encoded
+// input (X) and the head's partial sums.
+__host__ __device__ inline size_t value_smem_floats(const Layout& lay) {
+  const TileSmem ts = tile_smem(lay);
+  return (size_t)RING + (size_t)(ts.ar + ts.xr) * SA + 4 * P;
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
     mlp_value_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, float* udf, Layout lay,
                      size_t ld) {
-  extern __shared__ float smem[];
-  float* stage = smem;                          // [BK][BMP] + [BK][P]
-  float* X = stage + BK * BMP + BK * P;         // (d0p, P) encoded input
-  float* A0 = X + (size_t)lay.d0p * P;          // (smax, P) activations,
-  float* A1 = A0 + (size_t)lay.smax * P;        // ping-pong
+  extern __shared__ float4 smem4[];
+  const TileSmem ts = tile_smem(lay);
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* act = ring + RING;               // (ar, SA) activations
+  float* X = act + (size_t)ts.ar * SA;     // (xr, SA) encoded input
+  float* red = X + (size_t)ts.xr * SA;     // (4, P) head partial sums
   const size_t n0 = (size_t)blockIdx.x * P;
   const int L = lay.L;
+  const Frag f = frag_points();
 
-  for (int i = threadIdx.x; i < lay.d0p * P; i += NT)
-    X[i] = encode_row(pts, ld, n0 + i % P, i / P, lay);
+  for (int i = threadIdx.x; i < ts.ar * SA; i += NT) act[i] = 0.f;
+  for (int i = threadIdx.x; i < ts.xr * SA; i += NT) {
+    const int r = i / SA, p = i % SA;
+    X[i] = r < lay.d0p && p < P ? encode_row(pts, ld, n0 + p, r, lay) : 0.f;
+  }
   __syncthreads();
 
-  // The tile's rows are read from shared memory with leading dimension P
-  // and point offset 0; tile_gemm reloads them for every pass of BM rows,
-  // so each layer writes the buffer it does not read.
+  // z_l = W_l u_l + b_l; the tile keeps u_{l+1} = softplus100(z_l), scaled
+  // by 1/sqrt2 with the encoded x appended below it ahead of the skip layer
+  Acc acc;
   const float* h = X;
-  for (int l = 0; l < L; ++l) {
-    Rows src{h, lay.in[l], h, 1.f};
-    if (l > 0 && lay.skip[l]) src = Rows{h, lay.out[l - 1], X, INV_SQRT2};
-    const float* Wl = W + lay.off[l];
-    if (l < L - 1) {
-      float* a_out = (l & 1) ? A1 : A0;
-      tile_gemm<false>(Wl, lay.ldw, lay.out[l], lay.in[l], src, P, 0, stage,
-                       [&](int m, int p, float acc) {
-                         a_out[m * P + p] = softplus100(acc + B[m * L + l]);
-                       });
-      h = a_out;
-    } else {
-      tile_gemm<false>(Wl, lay.ldw, 1, lay.in[l], src, P, 0, stage,
-                       [&](int, int p, float acc) {
-                         const float y0 = acc + B[l];
-                         const float u = lay.udf_type == 0   ? fabsf(y0)
-                                         : lay.udf_type == 1 ? y0 * y0
-                                                             : y0;
-                         udf[n0 + p] = u / lay.scale;
-                       });
-    }
+  for (int l = 0; l < L - 1; ++l) {
+    const int M = lay.out[l];
+    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring, acc);
+    const float s = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
+    for_groups(M, [&](int mt, int nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = frag_m(f, mt, e);
+        if (m < M)
+          act[m * SA + frag_p(f, nt, e)] =
+              softplus100(acc[mt][nt][e] + B[m * L + l]) * s;
+      }
+    });
+    if (lay.skip[l + 1])
+      for (int i = threadIdx.x; i < lay.d0 * P; i += NT)
+        act[(M + i / P) * SA + i % P] = X[(i / P) * SA + i % P] * s;
+    __syncthreads();
+    h = act;
+  }
+  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, red);
+  if (threadIdx.x < P) {
+    const float y0 = red[threadIdx.x] + B[L - 1];
+    const float u = lay.udf_type == 0   ? fabsf(y0)
+                    : lay.udf_type == 1 ? y0 * y0
+                                        : y0;
+    udf[n0 + threadIdx.x] = u / lay.scale;
   }
 }
 
@@ -83,10 +96,11 @@ __global__ void __launch_bounds__(NT)
 
 extern "C" {
 
-// Bytes of dynamic shared memory a block takes; -1 on a bad layout.
+// Bytes of dynamic shared memory a block takes; -1 on a layout the kernel
+// does not take.
 long long emap_mlp_value_smem_bytes(const int* layout) {
   Layout lay;
-  if (parse_layout(layout, 1.f, &lay)) return -1;
+  if (parse_tc(layout, 1.f, &lay)) return -1;
   return (long long)(value_smem_floats(lay) * sizeof(float));
 }
 
@@ -97,7 +111,7 @@ int emap_mlp_value(const float* pts, const float* W, const float* B,
                    float* udf, long long n, const int* layout, float scale,
                    void* stream) {
   Layout lay;
-  if (parse_layout(layout, scale, &lay) || n <= 0 || n % P)
+  if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = value_smem_floats(lay) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(

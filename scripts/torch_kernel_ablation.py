@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the training field query's CUDA kernels spend their time, by
-ablation, on one NVIDIA GPU.
+"""Where the field query's CUDA kernels spend their time, by ablation, on
+one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ablation.py [NAME ...]
 
 Each ablation is a copy of emap_tpu_torch/csrc with one part of the design
 removed or changed (a source patch below), built with nvcc beside the
-others and timed at the training step's shape: ABC width, 116,736 points,
-CUDA events over 5 launches after a warm-up, in two rounds (ablations in
-turns). Every line gives the forward (#1a, mlp_query.cu) and backward (#2,
-mlp_train.cu) times, the backward's two main kernels from torch.profiler,
-and the max relative error of udf, grad and the worst W-bar/b-bar block
-against the plain PyTorch versions. Ablations that drop work give wrong
-results by design: they measure what that work costs. The card's name and
-power limit lead the output. No CPU fallback: without CUDA it fails.
+others and timed with CUDA events over 5 launches after a warm-up, in two
+rounds (ablations in turns). Only the kernels whose sources an ablation
+changes are timed for it (all of them for as_built): the training kernels
+at the training step's shape (ABC width, 116,736 points), forward (#1a,
+mlp_query.cu) and backward (#2, mlp_train.cu, with its two main kernels
+from torch.profiler), and the grid value kernel (#3, mlp_value.cu) at a
+128^3 grid pass (2,097,152 points). Every line gives the max relative
+error against the plain PyTorch versions (udf, grad, the worst W-bar/b-bar
+block), and ptxas' registers and spills lead each ablation's lines.
+Ablations that drop work give wrong results by design: they measure what
+that work costs. The card's name and power limit lead the output. No CPU
+fallback: without CUDA it fails.
 """
 
 from __future__ import annotations
@@ -116,8 +120,198 @@ ABLATIONS = {
         "mlp_train.cu": [("sig_softplus100(acc[mt][nt][e] + B[m * L + l], "
                           "sig[e], a[e]);",
                           "sig[e] = a[e] = acc[mt][nt][e];")],
+        "mlp_value.cu": [("softplus100(acc[mt][nt][e] + B[m * L + l]) * s;",
+                          "(acc[mt][nt][e] + B[m * L + l]) * s;")],
     },
+    # #3 on a 128-point tile: 16 warps (4 x 4 over 256 rows x 128 points),
+    # which halves the weight traffic from L2 a point; to fit in shared
+    # memory the ring has 16-step slots (sums promoted every 16 steps)
+    "p128": {
+        "mlp_common.cuh": [("constexpr int P = 64;", "constexpr int P = 128;"),
+                           ("constexpr int NT = 256;",
+                            "constexpr int NT = 512;")],
+        "mlp_mma.cuh": [("constexpr int KC = 32;", "constexpr int KC = 16;"),
+                        ("  return {w >> 1, w & 1, lane >> 2, lane & 3};",
+                         "  return {w >> 2, w & 3, lane >> 2, lane & 3};")]},
+    # #3 with the hidden weights split into (hi, lo) once a launch by a
+    # small kernel, into a pack laid out in mma.sync's A-fragment order
+    # (stream-ordered allocation in the launch): each layer's ring streams
+    # the pack (twice the L2 bytes; two 64 KB slots) and each warp reads its
+    # split fragments as two 16-byte loads instead of splitting four values
+    "presplit_weights": {"mlp_value.cu": [
+        ("  return (size_t)RING + (size_t)(ts.ar + ts.xr) * SA + 4 * P;",
+         "  return (size_t)4 * WMAX * KC + (size_t)(ts.ar + ts.xr) * SA + "
+         "4 * P;"),
+        ("  float* act = ring + RING;", "  float* act = ring + 4 * WMAX * KC;"),
+        ("""__global__ void __launch_bounds__(NT, 1)
+    mlp_value_kernel(const float* pts, const float* __restrict__ W,
+                     const float* __restrict__ B, float* udf, Layout lay,
+                     size_t ld) {""",
+         """// chunk q (KC steps of a hidden layer, layer by layer) of the pack at
+// pack + q CH, split, laid out [ks 8-step][m16 tile][hi, lo][lane][A-fragment
+// element], zero past out and in
+constexpr int CH = 2 * WMAX * KC;
+__global__ void split_weights_kernel(const float* __restrict__ W,
+                                     float* pack, Layout lay, int nq) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < (size_t)nq * WMAX * KC; e += (size_t)gridDim.x * blockDim.x) {
+    const int j = e & 3, lane = (e >> 2) & 31, t = (e >> 7) % (WMAX / 16);
+    const int ks = (e / (8 * WMAX)) % (KC / 8), q = e / (WMAX * KC);
+    int l = 0, c = q;
+    while (l < lay.L - 2 && c >= (lay.in[l] + KC - 1) / KC)
+      c -= (lay.in[l++] + KC - 1) / KC;
+    const int m = t * 16 + (lane >> 2) + (j & 1) * 8;
+    const int k = c * KC + ks * 8 + (lane & 3) + (j >> 1) * 4;
+    const float v = m < lay.out[l] && k < lay.in[l]
+                        ? W[(size_t)m * lay.ldw + lay.off[l] + k] : 0.f;
+    unsigned hi, lo;
+    split3(v, hi, lo);
+    float* dst = pack + (size_t)q * CH +
+                 ((ks * (WMAX / 16) + t) * 2) * 128 + lane * 4 + j;
+    dst[0] = __uint_as_float(hi);
+    dst[128] = __uint_as_float(lo);
+  }
 }
+
+// tc_product<false> from a layer's chunks of the pack, in a two-slot ring
+__device__ __forceinline__ void split_product(const float* pk, int M, int K,
+                                              const float* xs, float* ring,
+                                              Acc& acc) {
+  const Frag f = frag_points();
+  zero_acc(acc);
+  const int nch = (K + KC - 1) / KC;
+  auto load = [&](int c) {
+    if (c < nch)
+      for (int s = threadIdx.x; s < CH / 4; s += NT)
+        cp16(ring + (c % 2) * CH + 4 * s, pk + (size_t)c * CH + 4 * s, true);
+    cp_commit();
+  };
+  load(0);
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<0>();
+    __syncthreads();
+    load(c + 1);
+    const float* cur = ring + (c % 2) * CH;
+    const float* xk = xs + (size_t)c * KC * SA;
+    Acc part;
+    zero_acc(part);
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 8) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = f.wn * 32 + nt * 8 + f.gid;
+        split3(xk[(ks + f.tig) * SA + n], bh[nt][0], bl[nt][0]);
+        split3(xk[(ks + f.tig + 4) * SA + n], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (f.wm * 64 + mt * 16 >= M) continue;  // warp-uniform
+        const uint4* a4 = reinterpret_cast<const uint4*>(
+            cur + ((ks / 8 * (WMAX / 16) + f.wm * 4 + mt) * 2) * 128) +
+            (threadIdx.x & 31);
+        const uint4 h4 = a4[0], l4 = a4[32];
+        const unsigned ah[4] = {h4.x, h4.y, h4.z, h4.w};
+        const unsigned al[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_tf32(part[mt][nt], al, bh[nt]);
+          mma_tf32(part[mt][nt], ah, bl[nt]);
+          mma_tf32(part[mt][nt], ah, bh[nt]);
+        }
+      }
+    }
+    add_acc(acc, part);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    mlp_value_kernel(const float* pts, const float* __restrict__ W,
+                     const float* __restrict__ B, float* udf,
+                     const float* __restrict__ pack, Layout lay,
+                     size_t ld) {"""),
+        ("  const float* h = X;\n",
+         "  const float* h = X;\n  int q = 0;  // the layer's first chunk\n"),
+        ("    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, "
+         "ring, acc);",
+         "    split_product(pack + (size_t)q * CH, M, lay.in[l], h, ring, "
+         "acc);\n    q += (lay.in[l] + KC - 1) / KC;"),
+        ("""  mlp_value_kernel<<<(unsigned)(n / P), NT, bytes, (cudaStream_t)stream>>>(
+      pts, W, B, udf, lay, (size_t)n);
+  return (int)cudaGetLastError();""", """  int nq = 0;
+  for (int l = 0; l < lay.L - 1; ++l) nq += (lay.in[l] + KC - 1) / KC;
+  float* pack = nullptr;
+  const cudaError_t e2 = cudaMallocAsync(
+      (void**)&pack, (size_t)nq * CH * sizeof(float), (cudaStream_t)stream);
+  if (e2 != cudaSuccess) return (int)e2;
+  split_weights_kernel<<<(nq * WMAX * KC + 255) / 256, 256, 0,
+                         (cudaStream_t)stream>>>(W, pack, lay, nq);
+  mlp_value_kernel<<<(unsigned)(n / P), NT, bytes, (cudaStream_t)stream>>>(
+      pts, W, B, udf, pack, lay, (size_t)n);
+  cudaFreeAsync(pack, (cudaStream_t)stream);
+  return (int)cudaGetLastError();""")]},
+    # #3's hidden weights as ONE stream of 32-step chunks over all layers
+    # through a three-slot ring, two chunks ahead of the warps: the next
+    # layer's first chunks land while this layer's last one is multiplied
+    # and its epilogue runs (tc_product's ring drains at each layer's end)
+    "layer_stream": {"mlp_value.cu": [
+        ("  return (size_t)RING + (size_t)(ts.ar + ts.xr) * SA + 4 * P;",
+         "  return (size_t)3 * SLOT + (size_t)(ts.ar + ts.xr) * SA + 4 * P;"),
+        ("  float* act = ring + RING;", "  float* act = ring + 3 * SLOT;"),
+        ("""  Acc acc;
+  const float* h = X;""", """  int ql = 0, qc = 0, qs = 0, slot = 0;
+  auto load_next = [&]() {
+    if (ql < L - 1) {
+      const int M = lay.out[ql], K = lay.in[ql], k0 = qc * KC;
+      const float* Wl = W + lay.off[ql];
+      float* dst = ring + qs * SLOT;
+      const int segs = ((M + 15) & ~15) * (KC / 4);
+      for (int s = threadIdx.x; s < segs; s += NT) {
+        const int m = s / (KC / 4), kk = (s % (KC / 4)) * 4;
+        const bool ok = m < M && k0 + kk < K;
+        cp16(dst + m * SW + kk, ok ? Wl + (size_t)m * lay.ldw + k0 + kk : W,
+             ok);
+      }
+      qs = qs + 1 == 3 ? 0 : qs + 1;
+      if (++qc * KC >= K) {
+        qc = 0;
+        ++ql;
+      }
+    }
+    cp_commit();
+  };
+  load_next();
+  load_next();
+  Acc acc;
+  const float* h = X;"""),
+        ("    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, "
+         "ring, acc);", """    zero_acc(acc);
+    for (int k0 = 0; k0 < lay.in[l]; k0 += KC) {
+      cp_wait<1>();
+      __syncthreads();
+      load_next();
+      const float* cur = ring + slot * SLOT;
+      slot = slot + 1 == 3 ? 0 : slot + 1;
+      const float* xk = h + (size_t)k0 * SA;
+      Acc part;
+      zero_acc(part);
+      mma_chunk<KC>(
+          part, f, M,
+          [&](int m, int kk, unsigned& hi, unsigned& lo) {
+            split3(cur[m * SW + kk], hi, lo);
+          },
+          [&](int kk, int p, unsigned& hi, unsigned& lo) {
+            split3(xk[kk * SA + p], hi, lo);
+          });
+      add_acc(acc, part);
+    }
+    __syncthreads();""")]},
+}
+# The libraries an ablation is timed on where not every library its
+# patches reach: p128's tile does not fit the training kernels' shared
+# memory.
+TIMED = {"p128": ("mlp_value",)}
 
 
 def patched_tree(root: str, name: str) -> str:
@@ -137,6 +331,19 @@ def patched_tree(root: str, name: str) -> str:
         with open(path, "w") as f:
             f.write(src)
     return dst
+
+
+def libraries(name: str) -> tuple:
+    """The libraries an ablation's patches reach (every one for as_built
+    and for a patch of a shared header)."""
+    from emap_tpu_torch.kernels import build
+
+    if name in TIMED:
+        return TIMED[name]
+    files = ABLATIONS[name]
+    if not files or any(fn.endswith(".cuh") for fn in files):
+        return build.SOURCES
+    return tuple(lib for lib in build.SOURCES if f"{lib}.cu" in files)
 
 
 def main(names) -> int:
@@ -167,8 +374,12 @@ def main(names) -> int:
     ub = torch.randn(1, n, generator=g, device="cuda")
     gb = torch.zeros(8, n, device="cuda")
     gb[:3] = torch.randn(3, n, generator=g, device="cuda")
+    grid_n = 128 ** 3
+    xg = torch.zeros(8, grid_n, device="cuda")
+    xg[:3] = torch.rand(3, grid_n, generator=g, device="cuda") * 2 - 1
     u_p, g_p = tq.value_and_grad_plain(x, w, b, cfg)
     bwd_p = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, cfg), cfg)
+    ug_p = tq.value_plain(xg, w, b, cfg)
 
     def rel(a, c):
         return float((a - c).abs().max() / (c.abs().max() + 1e-30))
@@ -187,37 +398,53 @@ def main(names) -> int:
 
     with tempfile.TemporaryDirectory() as root:
         trees = {name: patched_tree(root, name) for name in names}
-        for tree in trees.values():
+        for name, tree in trees.items():
             build.CSRC = tree
-            build.build_all(("mlp_query", "mlp_train"))
+            build.build_all(libraries(name))
+            for lib in libraries(name):
+                for line in build.build_log(lib).splitlines():
+                    if "registers" in line or "spill" in line:
+                        print(f"ptxas {name} {lib}: {line.strip()}",
+                              flush=True)
         for rnd in range(2):
             for name, tree in trees.items():
                 build.CSRC = tree
                 build._loaded.clear()
-                u, gr = tq.value_and_grad(x, w, b, cfg)
-                bwd = tq.unpack_weights(*tt.train_bwd(x, w, b, ub, gb, cfg),
-                                        cfg)
-                torch.cuda.synchronize()
-                worst = max(rel(a, c) for got, want in zip(bwd, bwd_p)
-                            for a, c in zip(got, want))
-                fwd_ms = ms(lambda: tq.value_and_grad(x, w, b, cfg))
-                bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, cfg))
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    tt.train_bwd(x, w, b, ub, gb, cfg)
-                    torch.cuda.synchronize()
-                parts = {}
-                for e in prof.key_averages():
-                    m = re.search(r"(\w+_kernel)\(", e.key)
-                    if m:
-                        parts[m.group(1)] = getattr(
-                            e, "device_time_total", 0.0) / 1e3
-                print(f"round {rnd} {name:20s} fwd {fwd_ms:8.3f} ms  bwd "
-                      f"{bwd_ms:8.3f} ms (per_point "
-                      f"{parts.get('per_point_kernel', 0.0):.3f}, "
-                      f"wbar_partials "
-                      f"{parts.get('wbar_partials_kernel', 0.0):.3f})  "
-                      f"max rel err udf {rel(u, u_p):.2e} grad "
-                      f"{rel(gr, g_p):.2e} wbar {worst:.2e}", flush=True)
+                libs = libraries(name)
+                if "mlp_query" in libs:
+                    u, gr = tq.value_and_grad(x, w, b, cfg)
+                    fwd_ms = ms(lambda: tq.value_and_grad(x, w, b, cfg))
+                    print(f"round {rnd} {name:20s} #1a {fwd_ms:8.3f} ms  max "
+                          f"rel err udf {rel(u, u_p):.2e} grad "
+                          f"{rel(gr, g_p):.2e}", flush=True)
+                if "mlp_train" in libs:
+                    bwd = tq.unpack_weights(
+                        *tt.train_bwd(x, w, b, ub, gb, cfg), cfg)
+                    worst = max(rel(a, c) for got, want in zip(bwd, bwd_p)
+                                for a, c in zip(got, want))
+                    bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, cfg))
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        tt.train_bwd(x, w, b, ub, gb, cfg)
+                        torch.cuda.synchronize()
+                    parts = {}
+                    for e in prof.key_averages():
+                        m = re.search(r"(\w+_kernel)\(", e.key)
+                        if m:
+                            parts[m.group(1)] = getattr(
+                                e, "device_time_total", 0.0) / 1e3
+                    print(f"round {rnd} {name:20s} #2  {bwd_ms:8.3f} ms "
+                          f"(per_point "
+                          f"{parts.get('per_point_kernel', 0.0):.3f}, "
+                          f"wbar_partials "
+                          f"{parts.get('wbar_partials_kernel', 0.0):.3f})  "
+                          f"max rel err wbar {worst:.2e}", flush=True)
+                if "mlp_value" in libs:
+                    ug = tq.value(xg, w, b, cfg)
+                    same = torch.equal(ug, tq.value(xg, w, b, cfg))
+                    val_ms = ms(lambda: tq.value(xg, w, b, cfg))
+                    print(f"round {rnd} {name:20s} #3  {val_ms:8.3f} ms  max "
+                          f"rel err udf {rel(ug, ug_p):.2e}, two launches "
+                          f"bit-identical: {same}", flush=True)
     return 0
 
 

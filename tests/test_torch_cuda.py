@@ -199,3 +199,40 @@ def test_cuda_point_queries_pad_to_the_tile(cuda):
     assert u.shape == uv.shape == (1000,) and g.shape == (1000, 3)
     assert max_rel(u, ua.detach()) < 1e-4 and max_rel(uv, ua.detach()) < 1e-4
     assert max_rel(g, ga.detach()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multires", [10, 6])
+def test_cuda_value_kernel_matches_plain(cuda, multires):
+    """The grid value kernel at ABC width with the ABC conf's multires = 10
+    (d0p 64) and the Replica conf's multires = 6 (d0p 40, so the encoded
+    tile's 64 rows are part padding) against value_plain, max rel 1e-4;
+    one launch counted; two launches bit-identical."""
+    cfg = tudf.UDFConfig(multires=multires)
+    x, _, _ = points(65_536, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = tq.value.launches
+    u = tq.value(x, w, b, cfg)
+    again = tq.value(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert tq.value.launches == before + 2
+    assert bool(torch.isfinite(u).all())
+    assert max_rel(u, tq.value_plain(x, w, b, cfg)) < 1e-4
+    assert torch.equal(u, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value"])
+def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
+    """Each kernel library's SASS holds tensor-core instructions (HMMA)."""
+    import shutil
+    import subprocess
+
+    from emap_tpu_torch.kernels import build
+
+    build.load(lib)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.lib_path(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    assert sass.count("HMMA") > 0

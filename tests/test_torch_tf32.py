@@ -1,4 +1,4 @@
-"""The numeric design of the training field query's tensor-core kernels
+"""The numeric design of the field query's tensor-core kernels
 (emap_tpu_torch/csrc/mlp_mma.cuh), emulated on the CPU at ABC width.
 
 The kernels split every operand x of a matrix product into hi = rna(x) and
@@ -7,7 +7,8 @@ bits, ties away from zero), and sum lo*hi + hi*lo + hi*hi in fp32. A
 product of two TF32 values is exact in fp32, so fp32 matmuls of the split
 operands reproduce the tensor cores up to the order of the sums. Here every
 torch.matmul of the plain versions (kernels/mlp_query.py::
-value_and_grad_plain, kernels/mlp_train.py::train_bwd_plain) runs that way,
+value_and_grad_plain and value_plain, kernels/mlp_train.py::
+train_bwd_plain) runs that way,
 and the result is held block by block against the fp32 plain versions and
 against the JAX package's Pallas kernels at precision "highest" in
 interpret mode. The tensor cores' truncating accumulation is not emulated:
@@ -65,8 +66,8 @@ def max_rel(a, b) -> float:
 @pytest.fixture(scope="module")
 def abc():
     """(JAX cfg at "highest", port cfg, packed JAX weights, packed port
-    weights, points, ubar, gbar): the ABC-width net with seeded noise on
-    every weight, 256 points from a numpy seed."""
+    weights, points, ubar, gbar, JAX params): the ABC-width net with seeded
+    noise on every weight, 256 points from a numpy seed."""
     jcfg = judf.UDFConfig(precision="highest")
     tcfg = tudf.UDFConfig()
     jp = jax.tree.map(np.asarray, judf.init_udf_params(jax.random.key(0),
@@ -85,7 +86,7 @@ def abc():
     ubar = rng.normal(size=(1, N)).astype(np.float32)
     gbar = np.zeros((8, N), np.float32)
     gbar[:3] = rng.normal(size=(3, N))
-    return jcfg, tcfg, (wj, bj), (wt, bt), x, ubar, gbar
+    return jcfg, tcfg, (wj, bj), (wt, bt), x, ubar, gbar, jp
 
 
 def test_tf32_split_is_exact_to_fp32_roundoff():
@@ -108,7 +109,7 @@ def test_tf32_split_is_exact_to_fp32_roundoff():
 def test_3xtf32_value_and_grad_at_abc_width(abc, monkeypatch):
     """The forward + spatial-gradient math with 3xTF32 products against
     fp32 (value_and_grad_plain) and the Pallas kernel at "highest"."""
-    jcfg, tcfg, (wj, bj), (wt, bt), x, _, _ = abc
+    jcfg, tcfg, (wj, bj), (wt, bt), x, _, _, _ = abc
     xt = torch.as_tensor(x)
     u32, g32 = tq.value_and_grad_plain(xt, wt, bt, tcfg)
     monkeypatch.setattr(torch, "matmul", matmul_3xtf32(torch.matmul))
@@ -122,13 +123,32 @@ def test_3xtf32_value_and_grad_at_abc_width(abc, monkeypatch):
         assert max_rel(got, ref) < RTOL
 
 
+def test_3xtf32_value_at_abc_width(abc, monkeypatch):
+    """The grid value kernel's math (encode, 8 hidden products, head) with
+    3xTF32 products against fp32 (value_plain) and the Pallas value kernel
+    at "highest" (host PE, unpermuted weights, as pallas_udf_value calls
+    it)."""
+    jcfg, tcfg, _, (wt, bt), x, _, _, jp = abc
+    xt = torch.as_tensor(x)
+    u32 = tq.value_plain(xt, wt, bt, tcfg)
+    monkeypatch.setattr(torch, "matmul", matmul_3xtf32(torch.matmul))
+    u3 = tq.value_plain(xt, wt, bt, tcfg)
+    monkeypatch.undo()
+    wj, bj = jq.pack_weights(jax.tree.map(jnp.asarray, jp), jcfg)
+    uj = jq._pallas_value(jq._encode_host(jnp.asarray(x[:3].T), jcfg), wj,
+                          bj, jcfg, 128, True)
+    assert not torch.equal(u3, u32)  # the emulation did run
+    assert max_rel(u3, u32) < RTOL
+    assert max_rel(u3, uj) < RTOL
+
+
 def test_3xtf32_train_bwd_at_abc_width(abc, monkeypatch):
     """The second-order backward's math (forward recompute, the four
     chains, the weight-gradient contraction over the points) with 3xTF32
     products against fp32 (train_bwd_plain) and the Pallas kernel at
     "highest", each layer's W-bar and b-bar block against its own largest
     entry."""
-    jcfg, tcfg, (wj, bj), (wt, bt), x, ubar, gbar = abc
+    jcfg, tcfg, (wj, bj), (wt, bt), x, ubar, gbar, _ = abc
     args = (torch.as_tensor(x), wt, bt, torch.as_tensor(ubar),
             torch.as_tensor(gbar), tcfg)
     f32 = tt.train_bwd_plain(*args)
