@@ -37,7 +37,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      files exist, and that the fitted edges lie on the cube's edges; then
      hold the sliced value-and-gradient query against its plain version at
      the largest line-direction call of that run (a feature batch's live
-     candidates x sampling_N points, launched over slices of SLICE_CAP).
+     candidates x sampling_N points, launched over slices of SLICE_CAP);
+     and solve the first EIGH_BATCH Gram matrices of its line-direction
+     sweep again with LAPACK on the host, counting the smallest
+     eigenvectors whose sign differs from cuSOLVER's (a measurement only);
+  7. score phase 6's parametric_edges.json against the cube's analytic
+     edges with the ABC protocol (emap_tpu_torch/eval/synthetic.py):
+     F@5/10/20 mm, chamfer, the line and curve counts; F@20mm must reach
+     F20_MIN.
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script fails.
@@ -89,6 +96,10 @@ EDGE_MEDIAN_MAX = 2.0 / 127
 # the grid value kernel and its plain version, as a share of the grid: only
 # points within the two's ~1e-6 relative roundoff of a threshold can flip.
 MASK_DIFF_MAX = 1e-4
+# Phase 7's bar: F@20mm of the regressed field's edges against the cube's.
+# The fitted edges lie a median of under one 5 mm threshold from the cube's
+# edges (phase 6), so at 20 mm nearly every point should count.
+F20_MIN = 0.95
 
 
 def smi_line() -> str:
@@ -332,7 +343,8 @@ def sliced_row(ucfg, n: int) -> dict:
 
 def write_run_conf(tmp: str) -> str:
     """A copy of confs/ABC.conf training END_ITER steps on a synthetic cube
-    written with the port's own PNG writer."""
+    written by the port's scene writer (the JAX package's cv2 lines, pixel
+    for pixel, in the port's own PNG codec)."""
     from emap_tpu_torch import config
     from emap_tpu_torch.data import make_synthetic_scene
 
@@ -617,6 +629,15 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     grid, batches = pointcloud.grid_masks, pointcloud._run_point_batches
     pointcloud.grid_masks = watched(grid)
     pointcloud._run_point_batches = watched(batches)
+    # the first Gram matrices the line-direction sweep hands to eigh
+    eigh, grams = torch.linalg.eigh, []
+
+    def recording_eigh(m, *args, **kwargs):
+        if not grams:
+            grams.append(m.detach().clone())
+        return eigh(m, *args, **kwargs)
+
+    torch.linalg.eigh = recording_eigh
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rises["held before the extraction"] = torch.cuda.memory_allocated()
@@ -629,6 +650,7 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
         torch.cuda.synchronize()
     finally:
         pointcloud.grid_masks, pointcloud._run_point_batches = grid, batches
+        torch.linalg.eigh = eigh
     wall = time.perf_counter() - t0
     launches = {"mlp_value": mlp_query.value.launches,
                 "mlp_value_and_grad_sliced":
@@ -729,7 +751,54 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
           f"cube's edges (median), over one voxel")
     row = sliced_row(ucfg, linedir_n)
     row["launches"] = launches["mlp_value_and_grad_sliced"]
+    check(len(grams) == 1, "the extraction solved no line directions")
+    eigen_signs(grams[0])
     return row
+
+
+def eigen_signs(gram) -> None:
+    """The smallest eigenvectors of (B, 3, 3) Gram matrices from cuSOLVER
+    (on the card) against LAPACK's (torch on the host): how many point the
+    other way. Printed, not held to a bar."""
+    import torch
+
+    on_card = torch.linalg.eigh(gram)[1][:, :, 0].cpu()
+    on_host = torch.linalg.eigh(gram.cpu())[1][:, :, 0]
+    dots = (on_card * on_host).sum(-1)
+    flipped = int((dots < 0).sum())
+    # |dot| well below 1: the two solvers return different directions, not
+    # only different signs (a near-degenerate smallest eigenvalue)
+    apart = int((dots.abs() < 0.99).sum())
+    print(f"extract: line directions of the first {len(gram):,} Gram "
+          f"matrices of the line-direction sweep: cuSOLVER and LAPACK "
+          f"smallest eigenvectors differ in sign for {flipped:,} "
+          f"({flipped / len(gram):.4f}); {apart:,} of them are more than "
+          f"sign apart (|dot| < 0.99)", flush=True)
+
+
+def score_phase(conf_path: str, smi: str) -> None:
+    """Phase 7: phase 6's parametric edges against the cube's analytic
+    edges with the ABC protocol."""
+    from emap_tpu_torch import config
+    from emap_tpu_torch.eval.synthetic import score_extraction
+
+    conf = config.parse_file(conf_path)
+    exp_dir = os.path.join(conf["general.base_exp_dir"],
+                           str(conf["dataset.scan"]),
+                           conf["general.expname"])
+    with open(os.path.join(exp_dir, "results", "parametric_edges.json")) as f:
+        edges = json.load(f)
+    t0 = time.perf_counter()
+    score = score_extraction(exp_dir, edges, "cube")
+    print(f"score: the regressed cube field's edges against the cube's, "
+          f"ABC protocol: F@5mm {score['fscore_0.005']}, F@10mm "
+          f"{score['fscore_0.01']}, F@20mm {score['fscore_0.02']}, chamfer "
+          f"{score['chamfer']} (acc {score['acc']}, comp {score['comp']}); "
+          f"{score['n_lines']} lines, {score['n_curves']} curves; scored in "
+          f"{time.perf_counter() - t0:.1f} s on the host of {smi}",
+          flush=True)
+    check(score["fscore_0.02"] >= F20_MIN, f"F@20mm {score['fscore_0.02']} "
+          f"under {F20_MIN}")
 
 
 def main() -> int:
@@ -831,6 +900,7 @@ def main() -> int:
         first_step_check(conf_path, losses[0])
         step_phase(runner, smi)
         rows.append(extract_phase(conf_path, ucfg, row_of, smi))
+        score_phase(conf_path, smi)
 
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

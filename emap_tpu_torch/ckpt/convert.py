@@ -79,13 +79,19 @@ def checkpoint_payload(state: TrainState, best_loss: float) -> dict:
     }
 
 
+def adam_from_numpy(opt: dict, device="cuda") -> AdamState:
+    """An {"mu", "nu", "count"} tree of numpy leaves as the port's Adam
+    state on `device`."""
+    return AdamState(*(_tensors(opt[k], device)
+                       for k in ("mu", "nu", "count")))
+
+
 def state_from_payload(payload: dict, ucfg: UDFConfig, seed: int,
                        device="cuda") -> TrainState:
     """A TrainState from a checkpoint tree written by either package; the
     random generators restart from `seed`."""
     params = params_from_numpy(payload["params"], ucfg, device)
-    opt = AdamState(*(_tensors(payload["opt"][k], device)
-                      for k in ("mu", "nu", "count")))
+    opt = adam_from_numpy(payload["opt"], device)
     flags = {k: bool(payload["flags"][k]) for k in FLAG_KEYS}
     return make_state(params, seed, device, opt=opt,
                       step=int(payload["iter_step"]), flags=flags)

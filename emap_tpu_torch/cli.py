@@ -2,11 +2,13 @@
 
     python -m emap_tpu_torch.cli --conf confs/ABC.conf \
         --mode {train,extract_edge} [--scan SCAN] [--is_continue] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--stop_at STEP]
 
 Runs on the card unless `--device cpu` is given. `--mode extract_edge`
 reads the conf's `edge_extraction` block as emap_tpu/cli.py does and
-extracts from the run's checkpoint.
+extracts from the run's checkpoint. `--stop_at` (the port's own) ends a
+training run after STEP, with the schedules still set by `train.end_iter`;
+`--is_continue` then resumes it exactly.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def main(argv=None) -> Runner:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; cpu runs the kernels' plain "
                              "versions")
+    parser.add_argument("--stop_at", type=int, default=0,
+                        help="train mode: stop after this step; "
+                             "--is_continue resumes")
     args = parser.parse_args(argv)
 
     conf = config.parse_file(args.conf)
@@ -50,7 +55,7 @@ def main(argv=None) -> Runner:
     runner_cls = get_runner(conf["general.model_type"])
     runner = runner_cls(conf, args.mode, args.is_continue, device=args.device)
     if args.mode == "train":
-        runner.train()
+        runner.train(stop_at=args.stop_at)
     else:
         ee = conf.get_config("edge_extraction")
         runner.extract_edge(

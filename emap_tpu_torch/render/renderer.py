@@ -49,7 +49,7 @@ class RenderConfig:
         if self.upsampling_type != "classical":
             raise NotImplementedError(
                 f"upsampling_type {self.upsampling_type!r}: only \"classical\" "
-                "is ported (ROADMAP queue 1, item 2).")
+                "is ported (ROADMAP.md queue 1).")
 
     @classmethod
     def from_conf(cls, conf) -> "RenderConfig":

@@ -13,11 +13,14 @@ saved only when the rolling 500-step edge-loss average improves. One
 deliberate difference: the last step of a run closes a partial window (a run
 shorter than 500 steps, or one whose end is not on the 500 grid) and saves on
 it under the same improve-only rule, so a short run still leaves its
-checkpoint.
+checkpoint. `load_checkpoint` also reads a reference `.pth`
+(ckpt/pth_import.py). `train(stop_at=...)` ends a run early with its exact
+state in ckpt_stop.npz, which `is_continue` resumes from.
 
 `validate` renders one view in `batch_size`-ray chunks under no_grad (the
 fused training query serves its field queries) and writes the edge | GT,
-camera-frame normal and JET depth images with the port's PNG writer.
+camera-frame normal and JET depth images with the port's PNG writer. The
+views come from the JAX package's stream (numpy's MT19937 seeded 42).
 `extract_edge` extracts the zero-set point cloud on the runner's device
 through the grid and sweep kernels, fits and merges lines and curves on the
 host, and, with `auto_threshold` or `fit_draws > 1`, picks the threshold and
@@ -38,8 +41,15 @@ import numpy as np
 import torch
 
 from emap_tpu_torch import default_device, use_fp32_matmuls
-from emap_tpu_torch.ckpt.convert import checkpoint_payload, state_from_payload
+from emap_tpu_torch.ckpt.convert import (
+    FLAG_KEYS,
+    adam_from_numpy,
+    checkpoint_payload,
+    params_from_numpy,
+    state_from_payload,
+)
 from emap_tpu_torch.ckpt.native import load_pytree, save_pytree
+from emap_tpu_torch.ckpt.pth_import import import_reference_checkpoint
 from emap_tpu_torch.data.dataset import (
     RayPool,
     edge_at,
@@ -51,7 +61,7 @@ from emap_tpu_torch.extract.parametric import get_parametric_edge
 from emap_tpu_torch.fields.udf import UDFConfig
 from emap_tpu_torch.render.renderer import RenderConfig, render
 from emap_tpu_torch.train import schedules
-from emap_tpu_torch.train.state import init_train_state
+from emap_tpu_torch.train.state import init_train_state, make_state
 from emap_tpu_torch.train.step import (
     TrainConfig,
     build_train_step,
@@ -61,6 +71,9 @@ from emap_tpu_torch.train.step import (
 from emap_tpu_torch.utils.vis import visualize_depth
 
 logger = logging.getLogger(__name__)
+
+# steps in the rolling edge-loss average that decides a checkpoint save
+LOSS_WINDOW = 500
 
 
 class TrainingDiverged(RuntimeError):
@@ -120,8 +133,10 @@ class Runner:
         # at each fetch, which follows a device sync
         self.history: list = []
         self.timeline: list = []
-        # validation views are drawn from this generator
-        self.val_rng = np.random.default_rng(self.tcfg.seed)
+        # validation views: the stream the JAX package draws them from
+        # (np.random.seed(42) in its CLI, then np.random.randint), without
+        # touching numpy's global state
+        self.val_rng = np.random.RandomState(42)
         # per extraction: one dict per stage ({"stage", "seconds", ...})
         self.extract_trace: list = []
 
@@ -139,22 +154,31 @@ class Runner:
         logger.info("saved checkpoint (best loss %.4f) -> %s", loss_val, path)
 
     def load_checkpoint(self, name: str | None = None) -> None:
-        """Load an .npz checkpoint written by either package. A `.pth` name
-        falls back to the .npz beside it; importing a torch `.pth` belongs
-        to a later slice (ROADMAP.md queue 1, item 6)."""
+        """Load a checkpoint: an .npz written by either package, or a
+        reference `.pth` (ckpt/pth_import.py). A missing `.pth` falls back
+        to the .npz beside it. A `.pth` keeps this state's trainability
+        flags, and starts a fresh Adam state when it holds no optimizer."""
         name = name or self.latest_model_name
         path = name if os.path.isabs(name) else os.path.join(
             self._ckpt_dir(), name)
-        if path.endswith(".pth"):
-            if not os.path.exists(path[:-4] + ".npz"):
-                raise NotImplementedError(
-                    ".pth import is not ported yet (ROADMAP.md queue 1, "
-                    "item 6); save an .npz checkpoint instead")
+        if path.endswith(".pth") and not os.path.exists(path) and (
+                os.path.exists(path[:-4] + ".npz")):
             path = path[:-4] + ".npz"
-        payload = load_pytree(path)
-        self.state = state_from_payload(payload, self.ucfg, self.tcfg.seed,
-                                        self.device)
-        self.best_loss = float(payload.get("best_loss", 1.0))
+        if path.endswith(".pth"):
+            imported = import_reference_checkpoint(path)
+            params = params_from_numpy(imported["params"], self.ucfg,
+                                       self.device)
+            opt = (None if imported["opt"] is None
+                   else adam_from_numpy(imported["opt"], self.device))
+            flags = {k: bool(getattr(self.state, k)) for k in FLAG_KEYS}
+            self.state = make_state(params, self.tcfg.seed, self.device,
+                                    opt=opt, step=imported["iter_step"],
+                                    flags=flags)
+        else:
+            payload = load_pytree(path)
+            self.state = state_from_payload(payload, self.ucfg,
+                                            self.tcfg.seed, self.device)
+            self.best_loss = float(payload.get("best_loss", 1.0))
         logger.info("loaded checkpoint %s (iter %d)", path, self.state.step)
 
     def file_backup(self) -> None:
@@ -171,9 +195,21 @@ class Runner:
             f.write(self.conf.to_hocon())
 
     # -- training ----------------------------------------------------------
-    def train(self) -> None:
+    def train(self, stop_at: int = 0) -> None:
+        """Train to `end_iter`; or, with `stop_at`, stop after that step and
+        keep the exact state (the random generator's included) in
+        checkpoints/ckpt_stop.npz, from which `is_continue` resumes the run
+        as if it had not stopped. `stop_at` must lie on the grid of the
+        loss window and the saves, so that stopping changes nothing."""
+        grid = math.lcm(LOSS_WINDOW, self.save_freq)
+        if stop_at and stop_at % grid:
+            raise ValueError(f"stop_at {stop_at} is not a multiple of {grid}"
+                             " (the loss window and save_freq)")
         if self.is_continue:
-            self.load_checkpoint()
+            if os.path.exists(self._stop_path()):
+                self._resume_stopped()
+            else:
+                self.load_checkpoint()
         if self.mode.startswith("train"):
             self.file_backup()
 
@@ -183,14 +219,15 @@ class Runner:
         loss_avg = None
         pending: list = []  # packed metric vectors not yet fetched
         start_step = self.state.step
+        end = min(stop_at, self.end_iter) if stop_at else self.end_iter
         t0 = time.perf_counter()
         self.timeline.append((start_step, t0))
 
-        while self.state.step < self.end_iter:
+        while self.state.step < end:
             pending.append(pack_metrics(step_fn(self.state, self.pool)))
             step = self.state.step
             last_step = step == self.end_iter
-            if not (step % 500 == 0 or step % self.report_freq == 0
+            if not (step % LOSS_WINDOW == 0 or step % self.report_freq == 0
                     or step % self.save_freq == 0
                     or step % self.val_freq == 0 or last_step):
                 continue
@@ -211,7 +248,7 @@ class Runner:
                 raise TrainingDiverged(f"non-finite metrics at step {step}: "
                                        f"{bad}")
 
-            if (step % 500 == 0 or last_step) and loss_window:
+            if (step % LOSS_WINDOW == 0 or last_step) and loss_window:
                 loss_avg = float(np.mean(loss_window))
                 loss_window = []
 
@@ -233,6 +270,31 @@ class Runner:
                 self.save_checkpoint(loss_avg)
             if step % self.val_freq == 0:
                 self.validate()
+
+        if self.state.step < self.end_iter:
+            payload = checkpoint_payload(self.state, self.best_loss)
+            payload["generator"] = self.state.generator.get_state().numpy()
+            save_pytree(self._stop_path(), payload)
+            logger.info("stopped at step %d of %d -> %s", self.state.step,
+                        self.end_iter, self._stop_path())
+        elif os.path.exists(self._stop_path()):
+            os.remove(self._stop_path())
+
+    def _stop_path(self) -> str:
+        return os.path.join(self._ckpt_dir(), "ckpt_stop.npz")
+
+    def _resume_stopped(self) -> None:
+        """Continue a run that `train(stop_at=...)` stopped: its state, its
+        random generator, and the validation views it has drawn."""
+        payload = load_pytree(self._stop_path())
+        self.state = state_from_payload(payload, self.ucfg, self.tcfg.seed,
+                                        self.device)
+        self.state.generator.set_state(torch.from_numpy(
+            np.asarray(payload["generator"], np.uint8)))
+        self.best_loss = float(payload["best_loss"])
+        for _ in range(self.state.step // self.val_freq):
+            self.val_rng.randint(self.scene.n_images)
+        logger.info("resumed the stopped run at step %d", self.state.step)
 
     # -- validation ----------------------------------------------------------
     def render_image(self, idx: int, resolution_level: int):
@@ -290,7 +352,7 @@ class Runner:
         edge_maps/ (rendered | GT), normals/ (camera frame) and depths/
         (JET) PNGs named <step>_<idx>.png; returns {kind: path}."""
         if idx < 0:
-            idx = int(self.val_rng.integers(self.scene.n_images))
+            idx = int(self.val_rng.randint(self.scene.n_images))
         if resolution_level < 0:
             resolution_level = self.validate_resolution_level
         edge, depth, normals = self.render_image(idx, resolution_level)

@@ -5,6 +5,8 @@ Scenes are written by the JAX package's `make_synthetic_scene` (cv2) for
 the square, non-square and off-centre cameras of tests/test_nonsquare.py;
 the port must read them bit for bit as cv2 does and build the same rays."""
 
+import json
+import os
 import struct
 import zlib
 
@@ -17,6 +19,7 @@ import torch
 from emap_tpu import config as jconfig
 from emap_tpu.data import dataset as jds
 from emap_tpu.data import make_synthetic_scene as j_make_scene
+from emap_tpu.data import synthetic as jsyn
 from emap_tpu_torch import config as tconfig
 from emap_tpu_torch.data import dataset as tds
 from emap_tpu_torch.data import png
@@ -189,7 +192,8 @@ def test_png_writer_read_by_cv2(tmp_path):
 @pytest.mark.parametrize("obj", ["cube", "rings"])
 def test_port_scene_writer_matches_layout(tmp_path, obj):
     """The port's synthetic scene: the JAX package's cameras and layout,
-    readable by both loaders, with line pixels where cv2 drew them."""
+    readable by both loaders, with the edge maps cv2 drew, pixel for
+    pixel."""
     kw = dict(scan="cube000", n_views=2 if obj == "cube" else 1, H=48, W=40,
               pp_offset=(2.0, -1.0), obj=obj)
     tsyn.make_synthetic_scene(str(tmp_path / "t"), **kw)
@@ -200,7 +204,78 @@ def test_port_scene_writer_matches_layout(tmp_path, obj):
     np.testing.assert_array_equal(jt.edges, ts.edges)
     for k in ("intrinsics", "poses", "aabb"):
         np.testing.assert_array_equal(getattr(ts, k), getattr(js, k))
-    t_on, j_on = ts.edges > 0.3, js.edges > 0.3
-    assert t_on.any()
-    # anti-aliasing differs; the drawn lines overlap
-    assert (t_on & j_on).sum() > 0.5 * j_on.sum()
+    assert (ts.edges > 0.3).any()
+    np.testing.assert_array_equal(ts.edges, js.edges)
+
+
+SCENE_WRITES = {
+    "cube128": dict(n_views=24, H=128, W=128, obj="cube"),
+    "rings128": dict(n_views=24, H=128, W=128, obj="rings"),
+    "cube400": dict(n_views=1, H=400, W=400, obj="cube"),
+    "offcentre": dict(n_views=6, H=37, W=61, obj="rings",
+                      pp_offset=(-7.5, 4.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(SCENE_WRITES))
+def test_scene_writer_pixels_equal_cv2(tmp_path, name):
+    """Every edge and colour PNG of the port's scene decodes to the pixels
+    of the JAX package's cv2-drawn one; the JSON metadata is the same."""
+    kw = SCENE_WRITES[name]
+    t_dir = tsyn.make_synthetic_scene(str(tmp_path / "t"), **kw)
+    j_dir = j_make_scene(str(tmp_path / "j"), **kw)
+    with open(os.path.join(t_dir, "meta_data.json")) as f, open(
+            os.path.join(j_dir, "meta_data.json")) as g:
+        assert json.load(f) == json.load(g)
+    lit = 0
+    for sub in ("edge_DexiNed", "color"):
+        names = sorted(os.listdir(os.path.join(j_dir, sub)))
+        assert names == sorted(os.listdir(os.path.join(t_dir, sub)))
+        assert len(names) == kw["n_views"]
+        for n in names:
+            want = cv2.imread(os.path.join(j_dir, sub, n),
+                              cv2.IMREAD_UNCHANGED)
+            got = cv2.imread(os.path.join(t_dir, sub, n),
+                             cv2.IMREAD_UNCHANGED)
+            np.testing.assert_array_equal(got, want, err_msg=f"{sub}/{n}")
+            lit += int((want > 0).sum())
+    assert lit > 0
+
+
+def test_line_aa_equals_cv2_line():
+    """Random integer segments, many clipped at the border or wholly
+    outside, drawn into one array in turn: cv2.line(..., 1, LINE_AA) and
+    draw_lines_aa agree on every pixel, overlaps included."""
+    rng = np.random.default_rng(7)
+    for h, w in ((31, 47), (64, 64), (9, 120)):
+        p1 = rng.integers(-60, max(h, w) + 60, (400, 2))
+        p2 = rng.integers(-60, max(h, w) + 60, (400, 2))
+        p2[:40] = p1[:40]  # single points
+        p2[40:80, 0] = p1[40:80, 0]  # vertical
+        p2[80:120, 1] = p1[80:120, 1]  # horizontal
+        p2[120:160] = p1[120:160] + rng.choice(
+            [-1, 1], (40, 1)) * rng.integers(1, 30, (40, 1))  # diagonal
+        p1[160:170] = [-2 ** 31, 2 ** 31 - 1]  # far outside, as int32 ends
+        want = np.zeros((h, w), np.uint8)
+        for a, b in zip(p1, p2):
+            cv2.line(want, (int(a[0]), int(a[1])), (int(b[0]), int(b[1])),
+                     255, 1, lineType=cv2.LINE_AA)
+        got = np.zeros((h, w), np.uint8)
+        tsyn.draw_lines_aa(got, p1, p2)
+        np.testing.assert_array_equal(got, want)
+        assert (want > 0).sum() > 0.2 * h * w
+
+
+def test_scene_writer_thick_lines_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="line_px"):
+        tsyn.make_synthetic_scene(str(tmp_path), n_views=1, H=16, W=16,
+                                  line_px=2)
+
+
+def test_gt_samplers_equal():
+    for kw in ({}, {"spacing": 0.01}, {"half": 0.3}):
+        np.testing.assert_array_equal(tsyn.sample_cube_edge_points(**kw),
+                                      jsyn.sample_cube_edge_points(**kw))
+    for kw in ({}, {"spacing": 0.02}, {"radius": 0.01}):
+        np.testing.assert_array_equal(tsyn.sample_ring_edge_points(**kw),
+                                      jsyn.sample_ring_edge_points(**kw))

@@ -333,9 +333,72 @@ def test_cli_trains_and_writes_a_jax_readable_checkpoint(tmp_path):
 
 
 def test_later_slices_raise(tmp_path):
-    """Importing a torch `.pth` checkpoint belongs to a later slice: a
-    `.pth` name with no .npz beside it raises, naming the ROADMAP item."""
+    """What is left to later slices raises, naming the ROADMAP: the `mix`
+    up-sampler and scenes with lines thicker than one pixel. The `.pth`
+    import is ported (tests/test_torch_pth.py): a `.pth` that is not there
+    and has no .npz beside it is a missing file."""
     path = _tiny_conf(tmp_path)
     runner = cli.main(["--conf", path, "--mode", "train", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         runner.load_checkpoint("reference.pth")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.RenderConfig(upsampling_type="mix")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_synthetic_scene(str(tmp_path / "thick"), n_views=1, H=8, W=8,
+                             line_px=3)
+
+
+def test_validation_views_follow_the_reference_stream(tmp_path):
+    """Validation views are numpy's MT19937 stream after seed 42, as the JAX
+    package draws them (np.random.seed(42) in its CLI, then
+    np.random.randint), and numpy's global state is left alone."""
+    path = _tiny_conf(tmp_path)
+    runner = cli.main(["--conf", path, "--mode", "train", "--device", "cpu"])
+    n = runner.scene.n_images
+    before = np.random.get_state()
+    np.random.seed(42)
+    want = [int(np.random.randint(n)) for _ in range(50)]
+    np.random.set_state(before)
+    paths = runner.validate(resolution_level=8)
+    assert os.path.basename(paths["edge_maps"]) == f"00000002_{want[0]}.png"
+    got = [want[0]] + [int(runner.val_rng.randint(n)) for _ in range(49)]
+    assert got == want
+    assert len(set(want)) == n == 3
+    np.testing.assert_array_equal(np.random.get_state()[1], before[1])
+
+
+def test_stopped_run_resumes_exactly(tmp_path, monkeypatch):
+    """`--stop_at` then `--is_continue` gives the state, best checkpoint and
+    losses of the run that did not stop (the loss window shortened to 2
+    steps so that the stop grid is small); a stop off the grid raises."""
+    from emap_tpu_torch.train import runner as trunner
+
+    monkeypatch.setattr(trunner, "LOSS_WINDOW", 2)
+    whole = _tiny_conf(tmp_path / "whole", end_iter=6)
+    split = _tiny_conf(tmp_path / "split", end_iter=6)
+    ref = cli.main(["--conf", whole, "--device", "cpu"])
+    first = cli.main(["--conf", split, "--device", "cpu", "--stop_at", "4"])
+    assert first.state.step == 4
+    stop = os.path.join(first._ckpt_dir(), "ckpt_stop.npz")
+    assert os.path.exists(stop)
+    second = cli.main(["--conf", split, "--device", "cpu", "--is_continue"])
+    assert second.state.step == 6 and not os.path.exists(stop)
+    assert [h["loss"] for h in first.history + second.history] == [
+        h["loss"] for h in ref.history]
+    got = convert.checkpoint_payload(second.state, second.best_loss)
+    want = convert.checkpoint_payload(ref.state, ref.best_loss)
+    for (k, g), w in zip(_flat(got).items(), _flat(want).values()):
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    a = native.load_pytree(os.path.join(ref._ckpt_dir(), "ckpt_best.npz"))
+    b = native.load_pytree(os.path.join(second._ckpt_dir(), "ckpt_best.npz"))
+    for (k, g), w in zip(_flat(b).items(), _flat(a).values()):
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    with pytest.raises(ValueError, match="stop_at"):
+        cli.main(["--conf", split, "--device", "cpu", "--stop_at", "3"])
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _flat(tree[key], f"{prefix}{key}/").items()}
+    return {prefix.rstrip("/"): np.asarray(tree)}
