@@ -20,13 +20,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it, train END_ITER steps at full ABC width through
      `emap_tpu_torch.cli.main(... --mode train)` with one validation at the
-     last step, check that the training kernels launched once per step
-     (the forward once more per validation chunk), that every loss is
-     finite, that the three validation images decode at the view's size,
-     that the checkpoint reloads, and that the first step's loss and
-     gradients match the plain autograd path from the same state and batch;
-  5. the step on the kernels against the step on the plain autograd path,
-     and a profiler breakdown of two steps by kernel;
+     last step (the runner's default chain for these cadences, 5: a warm-up
+     step and a capture, then CUDA graph replays), check that the training
+     kernels ran once per step (the forward once more per validation
+     chunk), reckoned from the wrappers' counts and the replays, that
+     every loss is finite, that the three validation images decode at the
+     view's size, that the checkpoint reloads, and that the first step's
+     loss and gradients match the plain autograd path from the same state
+     and batch;
+  5. the eager step on the kernels against the eager step on the plain
+     autograd path, and a profiler breakdown of two eager steps by kernel,
+     with the host's launch calls a step;
+  8. (run after 5) the CUDA graph of the step at ABC width: from one copied
+     state, 2 x GRAPH_CHAIN eager steps against as many steps of the
+     chained step (a warm-up step, the capture and replays), bit for bit
+     in every state tensor and metric row, with `classical` and with `mix`
+     up-sampling; a capture that leaves the state of one eager step; the
+     replays' ms/step, and a profile of two replays (device time a step,
+     idle share, the host's launch calls a step against the eager step's);
   6. regress the ABC-width field onto the analytic UDF of the cube's 12
      edges, save it as the run's checkpoint and run
      `emap_tpu_torch.cli.main(... --mode extract_edge)` with the ABC conf's
@@ -100,6 +111,9 @@ MASK_DIFF_MAX = 1e-4
 # The fitted edges lie a median of under one 5 mm threshold from the cube's
 # edges (phase 6), so at 20 mm nearly every point should count.
 F20_MIN = 0.95
+# Phase 8: the CUDA graph's replays against eager steps, two chained calls
+# of this many steps from one state.
+GRAPH_CHAIN = 20
 
 
 def smi_line() -> str:
@@ -375,6 +389,7 @@ def first_step_check(conf_path: str, cli_loss: float) -> None:
 
     from emap_tpu_torch import config
     from emap_tpu_torch.data.dataset import sample_rays
+    from emap_tpu_torch.train import schedules
     from emap_tpu_torch.train.runner import Runner
     from emap_tpu_torch.train.step import image_index, loss_and_grads
 
@@ -383,13 +398,15 @@ def first_step_check(conf_path: str, cli_loss: float) -> None:
     batch = sample_rays(runner.pool, image_index(st, runner.scene.n_images),
                         st.generator, tcfg.batch_size,
                         importance_sample=tcfg.importance_sample)
+    at_0 = (schedules.cos_anneal_ratio(0, tcfg.anneal_end),
+            schedules.flip_saturation(0, float(tcfg.end_iter)))
     gen_state = st.generator.get_state()
-    loss_k, _, grads_k = loss_and_grads(st.params, batch, 0, st.generator,
-                                        tcfg, runner.rcfg, runner.ucfg)
+    loss_k, _, grads_k = loss_and_grads(st.params, batch, st.generator,
+                                        tcfg, runner.rcfg, runner.ucfg, *at_0)
     st.generator.set_state(gen_state)
     plain_cfg = dataclasses.replace(runner.ucfg, pallas_train="off")
-    loss_p, _, grads_p = loss_and_grads(st.params, batch, 0, st.generator,
-                                        tcfg, runner.rcfg, plain_cfg)
+    loss_p, _, grads_p = loss_and_grads(st.params, batch, st.generator,
+                                        tcfg, runner.rcfg, plain_cfg, *at_0)
     loss_k, loss_p = float(loss_k), float(loss_p)
     gk, gp = named_leaves(grads_k), named_leaves(grads_p)
     _, grad_rel, worst = errors(gk, gp)
@@ -406,16 +423,66 @@ def first_step_check(conf_path: str, cli_loss: float) -> None:
           f"kernel-path grads differ from autograd: {grad_rel:.3e}")
 
 
-def step_phase(runner, smi: str) -> None:
-    """The step on the kernels vs the step on the plain autograd path (in
-    turns, kernel-plain-plain-kernel), then device time by kernel over two
-    kernel-path steps from torch.profiler. These steps continue training
-    the runner's state; the launch counts were read before."""
-    import dataclasses
+# the host-side CUDA calls that put work on the device
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemsetAsync",
+                     "cudaMemcpyAsync")
 
+
+def profile_window(fn, steps: int) -> dict:
+    """torch.profiler over `fn()`, which runs `steps` training steps:
+    kernel time and kernel launches on the device a step, the host's CUDA
+    launch calls a step, and the kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = {e.key: e.count for e in events
+            if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCH_CALLS}
+    return {
+        "busy_ms": sum(dev_us(e) for e in kernels) / (1e3 * steps),
+        "kernel_names": len(kernels),
+        "launches": sum(e.count for e in kernels) / steps,
+        "host_calls": sum(host.values()) / steps,
+        "host_by_call": {k: v / steps for k, v in sorted(host.items())},
+        "top": [(dev_us(e) / (1e3 * steps), e.count / steps, e.key)
+                for e in sorted(kernels, key=dev_us, reverse=True)[:12]],
+    }
+
+
+def print_profile(name: str, prof: dict, ms: float) -> None:
+    print(f"profile {name}: {prof['busy_ms']:.2f} ms/step of kernel time on "
+          f"the device, {prof['kernel_names']} kernel names, "
+          f"{prof['launches']:.0f} kernel launches/step on the device, "
+          f"{prof['host_calls']:.1f} host launch calls/step "
+          f"{prof['host_by_call']}; idle share "
+          f"{1.0 - prof['busy_ms'] / ms:.3f} of the un-profiled "
+          f"{ms:.2f} ms/step", flush=True)
+    for busy, count, key in prof["top"]:
+        print(f"profile {name}:   {busy:9.3f} ms/step  {count:7.1f}/step  "
+              f"{key[:100]}", flush=True)
+
+
+def step_phase(runner, smi: str) -> float:
+    """The eager step on the kernels vs the eager step on the plain
+    autograd path (in turns, kernel-plain-plain-kernel), then device time
+    by kernel over two kernel-path steps from torch.profiler. These steps
+    continue training the runner's state; the launch counts were read
+    before. Returns the eager step's host launch calls a step."""
+    import dataclasses
+
+    import torch
 
     from emap_tpu_torch.train.step import build_train_step
 
@@ -435,30 +502,138 @@ def step_phase(runner, smi: str) -> None:
         torch.cuda.synchronize()
         times[name].append(1e3 * (time.perf_counter() - t0) / 5)
     ms = {k: sum(v) / len(v) for k, v in times.items()}
-    print(f"step: kernels {times['kernels']} ms, plain autograd "
+    print(f"step: eager, kernels {times['kernels']} ms, plain autograd "
           f"{times['plain']} ms per step on {smi}", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def two_steps():
         for _ in range(2):
             fns["kernels"](runner.state, runner.pool)
+
+    prof = profile_window(two_steps, 2)
+    print_profile("eager step", prof, ms["kernels"])
+    return prof["host_calls"]
+
+
+def copied_state(runner, rcfg=None):
+    """A new TrainState equal to the runner's, its generator's state
+    included (through the host, as a checkpoint would)."""
+    from emap_tpu_torch.ckpt.convert import (
+        checkpoint_payload,
+        state_from_payload,
+    )
+
+    st = state_from_payload(checkpoint_payload(runner.state, 1.0),
+                            runner.ucfg, runner.tcfg.seed, "cuda")
+    st.generator.set_state(runner.state.generator.get_state())
+    return st
+
+
+def state_snapshot(state) -> dict:
+    """Every tensor of a TrainState on the host, by name: parameters, Adam
+    moments and counts, gates, the step and the generator's state."""
+    import numpy as np
+
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+
+    out = {k: np.asarray(v) for k, v in named_leaves(
+        checkpoint_payload(state, 0.0)).items()}
+    out["generator"] = state.generator.get_state().numpy()
+    return out
+
+
+def differing(got: dict, want: dict) -> list:
+    import numpy as np
+
+    return [k for k in want if not np.array_equal(got[k], want[k])]
+
+
+def graph_phase(runner, smi: str, eager_host_calls: float) -> None:
+    """The CUDA graph of the step (train/step.py::ChainedStep) at ABC
+    width. From one copied state, for `classical` and then `mix`
+    up-sampling: 2 x GRAPH_CHAIN eager steps against two chained calls of
+    GRAPH_CHAIN (a warm-up step, the capture, then 2 x GRAPH_CHAIN - 1
+    replays), every state tensor and metric row bit for bit, and the
+    kernel launches as reckoned; a capture alone (a chain of 1) leaves the
+    state of one eager step. Then the replays' ms/step and a profile of two
+    replays: device time a step, idle share, and the host's launch calls a
+    step against the eager step's."""
+    import dataclasses
+
+    import torch
+
+    from emap_tpu_torch.train.step import (
+        build_chained_train_step,
+        build_train_step,
+        pack_metrics,
+    )
+
+    pool, n_images = runner.pool, runner.scene.n_images
+    timed = None
+    for kind in ("classical", "mix"):
+        rcfg = dataclasses.replace(runner.rcfg, upsampling_type=kind)
+        args = (runner.tcfg, rcfg, runner.ucfg, n_images)
+        eager_st, graph_st = copied_state(runner), copied_state(runner)
+        single = build_train_step(*args)
+        want = torch.stack([pack_metrics(single(eager_st, pool))
+                            for _ in range(2 * GRAPH_CHAIN)])
+        chained = build_chained_train_step(*args, GRAPH_CHAIN)
+        got = torch.cat([chained(graph_st, pool) for _ in range(2)])
         torch.cuda.synchronize()
-    events = prof.key_averages()
+        leaves = differing(state_snapshot(graph_st), state_snapshot(eager_st))
+        bad_rows = sorted({int(i) for i in torch.nonzero(got != want)[:, 1]})
+        print(f"graph {kind}: {2 * GRAPH_CHAIN} steps, eager vs a warm-up "
+              f"step + {2 * GRAPH_CHAIN - 1} replays: differing state "
+              f"tensors {leaves or 'none'}; differing metric columns "
+              f"{bad_rows or 'none'}; capture counted "
+              f"{chained.captured_launches}, replays ran "
+              f"{chained.replayed_launches}", flush=True)
+        check(not leaves and not bad_rows, f"{kind}: graph replays differ "
+              f"from eager steps in {leaves} and metric columns {bad_rows}")
+        check(chained.replayed_launches["mlp_train_bwd"]
+              == 2 * GRAPH_CHAIN - 1, "the replays' launches are not "
+              "reckoned")
+        if kind == "classical":
+            timed = (chained, graph_st)
+        else:
+            chained.release()
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
+    # a capture alone: the state of one eager step
+    eager_st, graph_st = copied_state(runner), copied_state(runner)
+    args = (runner.tcfg, runner.rcfg, runner.ucfg, n_images)
+    build_train_step(*args)(eager_st, pool)
+    once = build_chained_train_step(*args, 1)
+    once(graph_st, pool)
+    torch.cuda.synchronize()
+    leaves = differing(state_snapshot(graph_st), state_snapshot(eager_st))
+    print(f"graph: a warm-up step and a capture leave the state of one eager "
+          f"step: differing state tensors {leaves or 'none'}", flush=True)
+    check(not leaves, f"the capture changed the state: {leaves}")
+    once.release()
 
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 2e3
-    print(f"profile: {busy_ms:.2f} ms/step of kernel time on the device, "
-          f"{len(kernels)} kernel names, "
-          f"{sum(e.count for e in kernels) // 2} launches/step; idle share "
-          f"{1.0 - busy_ms / ms['kernels']:.3f} of the un-profiled "
-          f"{ms['kernels']:.2f} ms/step", flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        print(f"profile:   {dev_us(e) / 2e3:9.3f} ms/step  "
-              f"{e.count // 2:5d}/step  {e.key[:100]}", flush=True)
+    chained, st = timed
+    ms, host_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chained(st, pool)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ms.append(1e3 * (t2 - t0) / GRAPH_CHAIN)
+        host_ms.append(1e3 * (t1 - t0) / GRAPH_CHAIN)
+    chained.release()
+    print(f"graph: {GRAPH_CHAIN} replays a call, {ms} ms/step, host "
+          f"enqueue {host_ms} ms/step, on {smi}", flush=True)
+
+    two = build_chained_train_step(*args, 2)
+    two(st, pool)  # warm-up step, capture, one replay
+    prof = profile_window(lambda: two(st, pool), 2)
+    two.release()
+    print_profile("graph replay", prof, sum(ms) / len(ms))
+    print(f"graph: host launch calls a step {eager_host_calls:.1f} eager -> "
+          f"{prof['host_calls']:.1f} replayed", flush=True)
+    check(prof["host_calls"] < eager_host_calls, "the graph did not cut the "
+          "host's launches")
 
 
 def validation_check(runner, h: int, w: int, smi: str) -> None:
@@ -855,8 +1030,14 @@ def main() -> int:
         runner = cli.main(["--conf", conf_path, "--mode", "train"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"mlp_value_and_grad": mlp_query.value_and_grad.launches,
-                    "mlp_train_bwd": mlp_train.train_bwd.launches}
+        counted = {"mlp_value_and_grad": mlp_query.value_and_grad.launches,
+                   "mlp_train_bwd": mlp_train.train_bwd.launches}
+        # the steps ran as CUDA graph replays: a kernel ran its wrapper's
+        # count, less the launches its capture counted without running
+        # them, plus those the replays ran without counting
+        launches = {k: v - runner.captured_launches.get(k, 0)
+                    + runner.replayed_launches.get(k, 0)
+                    for k, v in counted.items()}
         row_of = {row["name"]: row for row in rows}
         for name, count in launches.items():
             row_of[name]["launches"] = count
@@ -867,8 +1048,13 @@ def main() -> int:
         val_chunks = -(-h * w // runner.batch_size)
         print(f"train: {END_ITER} steps and one validation through "
               f"emap_tpu_torch.cli in {wall:.1f} s (set-up and first step "
-              f"included); launches {launches}, {val_chunks} of them "
-              f"validation chunks", flush=True)
+              f"included); wrapper counts {counted}, of them captured "
+              f"{runner.captured_launches}; replays ran "
+              f"{runner.replayed_launches}; launches {launches}, "
+              f"{val_chunks} of them validation chunks", flush=True)
+        check(all(counted.values()) and runner.replayed_launches.get(
+            "mlp_train_bwd", 0) > 0, "the CLI run did not go through the "
+              "kernels and the graph")
         check(runner.state.step == END_ITER, f"trained to step "
               f"{runner.state.step}, not {END_ITER}")
         check(launches["mlp_train_bwd"] == END_ITER, "mlp_train_bwd "
@@ -898,7 +1084,8 @@ def main() -> int:
               f"{runner.state.step}")
 
         first_step_check(conf_path, losses[0])
-        step_phase(runner, smi)
+        eager_host_calls = step_phase(runner, smi)
+        graph_phase(runner, smi, eager_host_calls)
         rows.append(extract_phase(conf_path, ucfg, row_of, smi))
         score_phase(conf_path, smi)
 

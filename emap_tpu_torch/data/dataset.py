@@ -158,23 +158,33 @@ def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (v[:, None, :] * m[None, :, :]).sum(dim=-1)
 
 
-def rays_from_pixels(pool: RayPool, img_idx: int, px, py):
+def _image_row(table: torch.Tensor, img_idx) -> torch.Tensor:
+    """table[img_idx] for an int or a 0-d int64 tensor on the table's
+    device, by index_select: indexing with a tensor would read it on the
+    host (a sync, which a CUDA graph cannot hold)."""
+    idx = torch.as_tensor(img_idx, device=table.device).reshape(1)
+    return table.index_select(0, idx)[0]
+
+
+def rays_from_pixels(pool: RayPool, img_idx, px, py):
     """Pixel coordinates (B,) -> world rays_o, rays_d (B, 3), depth_scale
-    (B, 1) and the camera-space pixel directions (B, 3)."""
+    (B, 1) and the camera-space pixel directions (B, 3). `img_idx`: an int
+    or a 0-d int64 tensor on the pool's device."""
     p = torch.stack([px, py, torch.ones_like(px)], dim=-1)
-    pc = _matvec(pool.intrinsics_inv[img_idx], p)
+    pc = _matvec(_image_row(pool.intrinsics_inv, img_idx), p)
     rays_v = pc / torch.linalg.norm(pc, dim=-1, keepdim=True)
     depth_scale = rays_v[:, 2:3]
-    rays_d = _matvec(pool.rot[img_idx], rays_v)
-    rays_o = pool.origin[img_idx].expand(rays_d.shape)
+    rays_d = _matvec(_image_row(pool.rot, img_idx), rays_v)
+    rays_o = _image_row(pool.origin, img_idx).expand(rays_d.shape)
     return rays_o, rays_d, depth_scale, pc
 
 
-def sample_rays(pool: RayPool, img_idx: int, generator: torch.Generator,
+def sample_rays(pool: RayPool, img_idx, generator: torch.Generator,
                 batch_size: int, importance_sample: bool = True):
     """A training batch of rays on the pool's device: dict(rays_o, rays_d,
     edge, depth_scale, rays_ndc_uv), drawn from `generator` (on the same
-    device)."""
+    device). `img_idx`: an int or a 0-d int64 tensor on the pool's
+    device."""
     dev = pool.device
     if importance_sample:
         n_uniform = batch_size // 2
@@ -184,7 +194,7 @@ def sample_rays(pool: RayPool, img_idx: int, generator: torch.Generator,
         py_u = torch.randint(0, pool.H, (n_uniform,), generator=generator,
                              device=dev)
         u = torch.rand((n_imp,), generator=generator, device=dev)
-        flat_idx = torch.searchsorted(pool.cdf[img_idx].contiguous(), u,
+        flat_idx = torch.searchsorted(_image_row(pool.cdf, img_idx), u,
                                       right=True)
         flat_idx = torch.clamp(flat_idx, 0, pool.H * pool.W - 1)
         px = torch.cat([px_u, flat_idx % pool.W]).to(torch.float32)
@@ -197,10 +207,10 @@ def sample_rays(pool: RayPool, img_idx: int, generator: torch.Generator,
     return rays_at_pixels(pool, img_idx, px, py)
 
 
-def rays_at_pixels(pool: RayPool, img_idx: int, px, py):
+def rays_at_pixels(pool: RayPool, img_idx, px, py):
     """The batch dict of `sample_rays` at given pixel coordinates."""
     flat = py.to(torch.int64) * pool.W + px.to(torch.int64)
-    edge = pool.edges[img_idx][flat][:, None]
+    edge = _image_row(pool.edges, img_idx)[flat][:, None]
     rays_o, rays_d, depth_scale, _ = rays_from_pixels(pool, img_idx, px, py)
     return {
         "rays_o": rays_o,

@@ -2,9 +2,9 @@
 spatial gradient for the training step and the extraction sweeps, and the
 value alone for the extraction grid.
 
-* `fold_weights`, `pack_weights`, `pe_perm`: the weight-norm fold and the
-  packing into two buffers, in torch, so autograd carries the packed-weight
-  gradients back to (g, v, b).
+* `fold_weights`, `pack_weights`, `pe_perm`, `blocked_pe_columns`: the
+  weight-norm fold and the packing into two buffers, in torch, so
+  autograd carries the packed-weight gradients back to (g, v, b).
 * `value_and_grad_plain`, `value_plain`: the plain PyTorch versions of the
   kernels' math, feature-major like the kernels (CPU tests, and the
   references the CUDA kernels are held against on the card).
@@ -61,6 +61,15 @@ def pe_perm(cfg: UDFConfig) -> np.ndarray:
     return np.array(list(range(d)) + sin_cols + cos_cols)
 
 
+def blocked_pe_columns(w: torch.Tensor, cfg: UDFConfig) -> torch.Tensor:
+    """w[:, pe_perm(cfg)] for a weight's d0 encoded-input columns, by a
+    reshape and a transpose: no index tensor, so on the card no copy from
+    the host, which a CUDA graph could not hold."""
+    d, m, o = cfg.d_in, cfg.multires, w.shape[0]
+    enc = w[:, d:].reshape(o, m, 2, d).transpose(1, 2).reshape(o, 2 * m * d)
+    return torch.cat([w[:, :d], enc], dim=1)
+
+
 def layer_dims(cfg: UDFConfig):
     """[(in_dim_padded, out_dim)] per linear, lin0's input padded to 8."""
     d0_pad = round_up(cfg.dims[0], 8)
@@ -75,19 +84,16 @@ def fold_weights(params, cfg: UDFConfig, fuse_pe: bool = True):
     n_linear = len(cfg.dims) - 1
     d0 = cfg.dims[0]
     d0_pad = round_up(d0, 8)
-    perm = None
-    if fuse_pe:
-        perm = torch.as_tensor(pe_perm(cfg))
     layers = []
     for l in range(n_linear):
         layer = params[f"lin{l}"]
         w = effective_weight(layer).to(torch.float32)
-        if perm is not None:
-            p = perm.to(w.device)
+        if fuse_pe:
             if l == 0:
-                w = w[:, p]
+                w = blocked_pe_columns(w, cfg)
             elif l in cfg.skip_in:
-                w = torch.cat([w[:, :-d0], w[:, -d0:][:, p]], dim=1)
+                w = torch.cat([w[:, :-d0], blocked_pe_columns(w[:, -d0:],
+                                                              cfg)], dim=1)
         if l == 0 and d0_pad != d0:
             w = torch.nn.functional.pad(w, (0, d0_pad - d0))
         layers.append((w, layer["b"].to(torch.float32)[:, None]))
@@ -421,7 +427,7 @@ def value_flops(cfg: UDFConfig) -> int:
 
 __all__ = [
     "POINT_TILE", "SLICE_CAP", "fold_weights", "pack_weights",
-    "unpack_weights", "pe_perm", "layer_dims",
+    "unpack_weights", "pe_perm", "blocked_pe_columns", "layer_dims",
     "kernel_layout", "value_and_grad", "value_and_grad_plain",
     "value_and_grad_sliced", "value", "value_plain", "query_value",
     "query_value_and_grad", "query_flops", "value_flops",

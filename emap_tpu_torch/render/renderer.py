@@ -1,12 +1,15 @@
 """Unbiased two-sided UDF volume renderer (port of
 emap_tpu/render/renderer.py).
 
-One call renders a batch of rays: stratified base samples -> 5 rounds of
-no-grad importance up-sampling -> field value + spatial gradient at the
-mid-points -> occlusion/visibility cumprod -> two-sided alpha blend ->
-weights -> edge/depth/normal integration and the eikonal terms. The train
-step differentiates the result with autograd; the loss depends on the
-spatial gradient, so the field query is differentiated twice.
+One call renders a batch of rays: stratified base samples -> no-grad
+importance up-sampling ("classical": 5 rounds; "mix": 5 occlusion-blind
+rounds with the learned gamma, then one unbiased round) -> field value +
+spatial gradient at the mid-points -> occlusion/visibility cumprod ->
+two-sided alpha blend -> weights -> edge/depth/normal integration and the
+eikonal terms. The train step differentiates the result with autograd; the
+loss depends on the spatial gradient, so the field query is differentiated
+twice. The two schedules (`cos_anneal_ratio`, `flip_saturation`) may be
+python floats or 0-d tensors on the rays' device.
 """
 
 from __future__ import annotations
@@ -46,10 +49,9 @@ class RenderConfig:
                 "and not supported.")
         if self.sdf2alpha_type not in ("numerical", "theorical"):
             raise ValueError(f"unknown sdf2alpha_type {self.sdf2alpha_type!r}")
-        if self.upsampling_type != "classical":
-            raise NotImplementedError(
-                f"upsampling_type {self.upsampling_type!r}: only \"classical\" "
-                "is ported (ROADMAP.md queue 1).")
+        if self.upsampling_type not in ("classical", "mix"):
+            raise ValueError(
+                f"unknown upsampling_type {self.upsampling_type!r}")
 
     @classmethod
     def from_conf(cls, conf) -> "RenderConfig":
@@ -72,13 +74,42 @@ class RenderConfig:
 
     @property
     def n_importance_delivered(self) -> int:
+        """Extra samples the up-sampler produces: "classical" delivers
+        steps * (n // steps), "mix" (steps + 1) * (n // (steps + 1)), the
+        reference's under-delivery (the JAX package keeps it)."""
         if self.n_importance == 0:
             return 0
-        return (self.n_importance // self.up_sample_steps) * self.up_sample_steps
+        rounds = self.up_sample_steps + (self.upsampling_type == "mix")
+        return (self.n_importance // rounds) * rounds
 
     @property
     def total_samples(self) -> int:
         return self.n_samples + self.n_importance_delivered
+
+
+class _CumprodOfPositives(torch.autograd.Function):
+    """torch.cumprod over the last dim of a tensor with no zero, with the
+    backward PyTorch takes for such an input: (out * g) summed from the
+    right, divided by x. PyTorch's own cumprod backward (2.11) first asks
+    on the host whether the input holds a zero, a sync that a CUDA graph of
+    the step cannot hold. render_core's factors are never zero: each is 1,
+    clamp(.., 0, 1) + 1e-7, or 1 - alpha + 1e-7 with alpha a blend of
+    values in [0, 1]."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def cumprod_of_positives(x: torch.Tensor) -> torch.Tensor:
+    return _CumprodOfPositives.apply(x)
 
 
 def safe_l2norm(x, dim=-1, keepdim=False):
@@ -141,9 +172,9 @@ def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
         alpha_occ = 1.0 - torch.exp(-torch.relu(raw_occ) * gamma * dists)
         vis_mask = (true_cos < 0.01).to(z_vals.dtype)
         vis_mask = torch.cat([vis_mask[:, 1:], ones], dim=-1)
-        vis_prob = torch.cumprod(torch.cat(
+        vis_prob = cumprod_of_positives(torch.cat(
             [ones, torch.clamp(1.0 - alpha_occ + flip_saturation * vis_mask,
-                               0.0, 1.0) + 1e-7], dim=-1), dim=-1)[:, :-1]
+                               0.0, 1.0) + 1e-7], dim=-1))[:, :-1]
         vis_prob = torch.clamp(vis_prob, 0.0, 1.0)
 
         neg_abs_cos = -torch.abs(true_cos)
@@ -159,8 +190,8 @@ def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
         raw_occ = sampling.udf2logistic(udf, beta, 1.0, 1.0)
         alpha = 1.0 - torch.exp(-torch.relu(raw_occ) * gamma * dists)
 
-    weights = alpha * torch.cumprod(
-        torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1), dim=-1)[:, :-1]
+    weights = alpha * cumprod_of_positives(
+        torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))[:, :-1]
     weights_sum = torch.sum(weights, dim=-1, keepdim=True)
 
     edge = weights_sum  # the edge "appearance" is a constant 1
@@ -226,9 +257,16 @@ def render(params, rays_o, rays_d, near: float, far: float, depth_scale,
         def udf_fn(p):
             return udf_value(params["udf"], p, udf_cfg)
 
-        z_vals = sampling.importance_sample(
-            udf_fn, rays_o, rays_d, z_vals, sample_dist, cfg.n_importance,
-            cfg.up_sample_steps, use_unbias=cfg.use_unbias_render)
+        if cfg.upsampling_type == "classical":
+            z_vals = sampling.importance_sample(
+                udf_fn, rays_o, rays_d, z_vals, sample_dist, cfg.n_importance,
+                cfg.up_sample_steps, use_unbias=cfg.use_unbias_render)
+        else:
+            beta, gamma, _ = beta_gamma_zeta(params["beta"], cfg.beta_min)
+            z_vals = sampling.importance_sample_mix(
+                udf_fn, rays_o, rays_d, z_vals, sample_dist, cfg.n_importance,
+                cfg.up_sample_steps, torch.clamp(beta[0], 1e-6, 1e6),
+                torch.clamp(gamma[0], 1e-6, 1e6))
 
     ret = render_core(params, rays_o, rays_d, z_vals, sample_dist, cfg,
                       udf_cfg, cos_anneal_ratio, flip_saturation,

@@ -1,5 +1,6 @@
 """Ray sampling: stratified base samples, inverse-CDF PDF sampling and the
-UDF-aware hierarchical up-sampling (port of emap_tpu/render/sampling.py).
+UDF-aware hierarchical up-sampling, "classical" and "mix" (port of
+emap_tpu/render/sampling.py).
 
 The JAX package gathers and merges with one-hot matmuls, a TPU workaround;
 here `torch.searchsorted`, `torch.gather` and a stable `torch.sort` do the
@@ -200,3 +201,30 @@ def importance_sample(udf_fn: Callable, rays_o, rays_d, z_vals, sample_dist,
         z_vals, udf = merge_z_vals(z_vals, new_z, udf, new_udf)
     return z_vals
 
+
+
+@torch.no_grad()
+def importance_sample_mix(udf_fn: Callable, rays_o, rays_d, z_vals,
+                          sample_dist, n_importance: int,
+                          up_sample_steps: int, beta, gamma) -> torch.Tensor:
+    """The "mix" strategy: `up_sample_steps` rounds of the occlusion-blind
+    up-sampler with the learned gamma (round i: inv_s = 64*2^i, its beta
+    argument 64*2^(i+1); the learned `beta` is taken and not used, as in
+    the reference), then one unbiased round at the last round's inv_s.
+    Delivers (steps+1) * (n_importance // (steps+1)) samples, fewer than
+    n_importance: the reference's under-delivery, which the JAX package
+    keeps."""
+    n_per = n_importance // (up_sample_steps + 1)
+    udf = _query(udf_fn, rays_o, rays_d, z_vals)
+    for i in range(up_sample_steps):
+        new_z = up_sample_no_occ_aware(rays_o, rays_d, z_vals, udf,
+                                       sample_dist, n_per, 64 * 2 ** i,
+                                       64 * 2 ** (i + 1), gamma)
+        z_vals, udf = merge_z_vals(z_vals, new_z, udf,
+                                   _query(udf_fn, rays_o, rays_d, new_z))
+    i = up_sample_steps - 1
+    new_z = up_sample_unbias(rays_o, rays_d, z_vals, udf, sample_dist, n_per,
+                             64 * 2 ** i, 64 * 2 ** (i + 1),
+                             20.0 if i < 4 else 10.0)
+    z_vals, _ = merge_z_vals(z_vals, new_z, udf, None)
+    return z_vals

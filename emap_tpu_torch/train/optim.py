@@ -49,8 +49,10 @@ def adam_init(params) -> AdamState:
 def adam_update(params, grads, state: AdamState, lr_tree, mask_tree,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
     """In place: params, state.mu, state.nu and state.count. lr_tree holds
-    python floats, mask_tree 0-d tensors (or floats); a grad of None counts
-    as zero."""
+    0-d tensors or python floats, mask_tree 0-d tensors (or floats); a grad
+    of None counts as zero. A float mask becomes a tensor here, a copy from
+    the host: the training step passes float32 tensors on the params'
+    device, which `as_tensor` returns as they are."""
 
     def leaf(p, g, m, v, c, lr, mask):
         if g is None:

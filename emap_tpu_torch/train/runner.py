@@ -3,10 +3,17 @@ emap_tpu/train/runner.py): Runner(conf, mode, is_continue, device) with
 .train(), .validate(), .extract_edge(), checkpoints and the
 report/save/validation cadences.
 
-The loop runs one eager step at a time (train/step.py). Each step's metrics
-stay on the device as one packed vector; the loop fetches the pending
-vectors in one copy only at the logging cadences, so steps between them
-make no host sync.
+The loop dispatches as the JAX runner does: `chain` steps a call through
+the chained step (train/step.py::ChainedStep, a CUDA graph of the step on
+the card) wherever a whole chain fits before the run's end, single eager
+steps elsewhere. The chain divides every event cadence (`dispatch_chain`,
+`train.steps_per_dispatch`), so checkpoints, validations and the loss
+window land on the same steps whatever its length; a chain of 1 is the
+per-step eager path. Each step's metrics stay on the device as one packed
+vector; the loop fetches the pending vectors in one copy only at the
+logging cadences, so steps between them make no host sync.
+`train.profile_steps` traces that many steps with torch.profiler from the
+run's sixth step into <base_exp_dir>/profile, with the chain forced to 1.
 
 Checkpoints: native .npz (ckpt/native.py) with the JAX package's layout,
 saved only when the rolling 500-step edge-loss average improves. One
@@ -64,6 +71,7 @@ from emap_tpu_torch.train import schedules
 from emap_tpu_torch.train.state import init_train_state, make_state
 from emap_tpu_torch.train.step import (
     TrainConfig,
+    build_chained_train_step,
     build_train_step,
     pack_metrics,
     unpack_metrics,
@@ -78,6 +86,29 @@ LOSS_WINDOW = 500
 
 class TrainingDiverged(RuntimeError):
     pass
+
+
+def dispatch_chain(steps_per_dispatch: int, report_freq: int, save_freq: int,
+                   val_freq: int, profile_steps: int = 0) -> int:
+    """Steps a dispatch, by the JAX runner's rule: the conf's
+    `train.steps_per_dispatch`, or, at 0 or below, the largest chain that
+    divides the loss window and every event cadence; a chain that does not
+    divide them is rounded down to one that does, with a warning, so that
+    checkpoints and validations keep their exact steps. The gcd with the
+    500-step window keeps it in [1, 500], the JAX rule's clamp. A profiler
+    window forces per-step dispatch."""
+    aligned = math.gcd(math.gcd(LOSS_WINDOW, report_freq),
+                       math.gcd(save_freq, val_freq))
+    chain = steps_per_dispatch
+    if chain <= 0:
+        chain = aligned
+    elif aligned % chain:
+        logger.warning(
+            "train.steps_per_dispatch=%d does not divide the event cadences "
+            "(gcd %d); rounding down so checkpoints/validation stay on their "
+            "exact steps", chain, aligned)
+        chain = math.gcd(chain, aligned)
+    return 1 if profile_steps else chain
 
 
 class Runner:
@@ -139,6 +170,12 @@ class Runner:
         self.val_rng = np.random.RandomState(42)
         # per extraction: one dict per stage ({"stage", "seconds", ...})
         self.extract_trace: list = []
+        # kernel launches of the chained steps' CUDA graphs, by kernel: the
+        # wrappers count at capture what the graph holds without running
+        # it, and replays run it uncounted, so a kernel ran its wrapper's
+        # count - captured + replayed times
+        self.captured_launches: dict = {}
+        self.replayed_launches: dict = {}
 
     # -- checkpoints -------------------------------------------------------
     def _ckpt_dir(self) -> str:
@@ -213,63 +250,100 @@ class Runner:
         if self.mode.startswith("train"):
             self.file_backup()
 
+        profile_steps = self.conf.get_int("train.profile_steps", 0)
+        chain = dispatch_chain(
+            self.conf.get_int("train.steps_per_dispatch", 0),
+            self.report_freq, self.save_freq, self.val_freq, profile_steps)
         step_fn = build_train_step(self.tcfg, self.rcfg, self.ucfg,
                                    self.scene.n_images)
+        # built after the resume above: a graph holds the state's addresses
+        chained = (build_chained_train_step(self.tcfg, self.rcfg, self.ucfg,
+                                            self.scene.n_images, chain)
+                   if chain > 1 else None)
         loss_window: list = []
         loss_avg = None
-        pending: list = []  # packed metric vectors not yet fetched
+        pending: list = []  # (k, M) packed metric rows not yet fetched
         start_step = self.state.step
         end = min(stop_at, self.end_iter) if stop_at else self.end_iter
+        profile_start = start_step + 5
+        prof = None
         t0 = time.perf_counter()
         self.timeline.append((start_step, t0))
+        logger.info("dispatching %d step(s) a call", chain)
 
-        while self.state.step < end:
-            pending.append(pack_metrics(step_fn(self.state, self.pool)))
-            step = self.state.step
-            last_step = step == self.end_iter
-            if not (step % LOSS_WINDOW == 0 or step % self.report_freq == 0
-                    or step % self.save_freq == 0
-                    or step % self.val_freq == 0 or last_step):
-                continue
+        try:
+            while self.state.step < end:
+                it = self.state.step
+                if profile_steps and it == profile_start:
+                    prof = self._start_profile()
+                if prof is not None and it == profile_start + profile_steps:
+                    self._stop_profile(prof)
+                    prof = None
+                if chained is not None and it % chain == 0 and (
+                        it + chain <= end):
+                    pending.append(chained(self.state, self.pool))
+                else:
+                    pending.append(
+                        pack_metrics(step_fn(self.state, self.pool))[None])
+                step = self.state.step
+                last_step = step == self.end_iter
+                if not (step % LOSS_WINDOW == 0 or step % self.report_freq == 0
+                        or step % self.save_freq == 0
+                        or step % self.val_freq == 0 or last_step):
+                    continue
 
-            rows = torch.stack(pending).cpu().numpy()  # the one sync
-            now = time.perf_counter()
-            self.timeline.append((step, now))
-            first = step - len(pending) + 1
-            pending = []
-            for i, vec in enumerate(rows):
-                m = unpack_metrics(vec)
-                self.history.append({"step": first + i, **m})
-                loss_window.append(m["edge_loss"])
-            last = self.history[-1]
-            bad = {k: last[k] for k in ("loss", "edge_loss", "psnr")
-                   if not math.isfinite(last[k])}
-            if bad:
-                raise TrainingDiverged(f"non-finite metrics at step {step}: "
-                                       f"{bad}")
+                rows = torch.cat(pending).cpu().numpy()  # the one sync
+                now = time.perf_counter()
+                self.timeline.append((step, now))
+                first = step - len(rows) + 1
+                pending = []
+                for i, vec in enumerate(rows):
+                    m = unpack_metrics(vec)
+                    self.history.append({"step": first + i, **m})
+                    loss_window.append(m["edge_loss"])
+                last = self.history[-1]
+                bad = {k: last[k] for k in ("loss", "edge_loss", "psnr")
+                       if not math.isfinite(last[k])}
+                if bad:
+                    raise TrainingDiverged(
+                        f"non-finite metrics at step {step}: {bad}")
 
-            if (step % LOSS_WINDOW == 0 or last_step) and loss_window:
-                loss_avg = float(np.mean(loss_window))
-                loss_window = []
+                if (step % LOSS_WINDOW == 0 or last_step) and loss_window:
+                    loss_avg = float(np.mean(loss_window))
+                    loss_window = []
 
-            if step % self.report_freq == 0:
-                seconds = now - t0
-                logger.info(
-                    "iter %d loss=%.4f edge=%.4f eik=%.4f psnr=%.2f "
-                    "s_val=%.5f beta=%.5f gamma=%.3f lr=%.2e lr_geo=%.2e "
-                    "w_sum=%.3f udf_min=%.5f ms/step=%.1f rays/s=%.0f",
-                    step, last["loss"], last["edge_loss"],
-                    last["gradient_error"], last["psnr"], last["variance"],
-                    last["beta"], last["gamma"], last["lr"], last["lr_geo"],
-                    last["weight_sum"], last["udf_min"],
-                    1e3 * seconds / (step - start_step),
-                    self.batch_size * (step - start_step) / seconds)
+                if step % self.report_freq == 0:
+                    seconds = now - t0
+                    logger.info(
+                        "iter %d loss=%.4f edge=%.4f eik=%.4f psnr=%.2f "
+                        "s_val=%.5f beta=%.5f gamma=%.3f lr=%.2e lr_geo=%.2e "
+                        "w_sum=%.3f udf_min=%.5f ms/step=%.1f rays/s=%.0f",
+                        step, last["loss"], last["edge_loss"],
+                        last["gradient_error"], last["psnr"],
+                        last["variance"], last["beta"], last["gamma"],
+                        last["lr"], last["lr_geo"], last["weight_sum"],
+                        last["udf_min"], 1e3 * seconds / (step - start_step),
+                        self.batch_size * (step - start_step) / seconds)
 
-            if (step % self.save_freq == 0 or last_step) and (
-                    loss_avg is not None):
-                self.save_checkpoint(loss_avg)
-            if step % self.val_freq == 0:
-                self.validate()
+                if (step % self.save_freq == 0 or last_step) and (
+                        loss_avg is not None):
+                    self.save_checkpoint(loss_avg)
+                if step % self.val_freq == 0:
+                    self.validate()
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
+            if chained is not None:
+                for mine, its in ((self.captured_launches,
+                                   chained.captured_launches),
+                                  (self.replayed_launches,
+                                   chained.replayed_launches)):
+                    for k, v in its.items():
+                        mine[k] = mine.get(k, 0) + v
+                # the graph and its memory pool go before an extraction
+                chained.release()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
 
         if self.state.step < self.end_iter:
             payload = checkpoint_payload(self.state, self.best_loss)
@@ -279,6 +353,25 @@ class Runner:
                         self.end_iter, self._stop_path())
         elif os.path.exists(self._stop_path()):
             os.remove(self._stop_path())
+
+    def _start_profile(self):
+        """A torch.profiler trace of the host and, on the card, the
+        device."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        prof.stop()
+        out = os.path.join(self.base_exp_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        logger.info("profiler trace written to %s", out)
 
     def _stop_path(self) -> str:
         return os.path.join(self._ckpt_dir(), "ckpt_stop.npz")

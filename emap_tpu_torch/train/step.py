@@ -1,11 +1,18 @@
 """The training step: ray sampling -> render -> loss -> masked Adam (port of
-emap_tpu/train/step.py).
+emap_tpu/train/step.py), and the chained step that advances a run by K
+steps a call (the counterpart of the JAX package's
+build_chained_train_step).
 
 The JAX package compiles the step into one XLA program and chains steps
-with `lax.scan`; here the step is plain Python over eager tensors. The
-state is updated in place (parameters and Adam moments), metrics stay on the
-device as 0-d tensors and the runner fetches them at its logging cadence, so
-a step makes no host sync.
+with `lax.scan`. Here the step is plain Python over eager tensors, split in
+two: the host works out the step's values (image index, schedules, the
+step counter) and writes them into 0-d device tensors (`StepInputs`, one
+`fill_` each: a launch, not a copy), and `step_body` does all of the
+device work reading only those tensors and the state. The state is updated
+in place (parameters, Adam moments and counts, trainability gates), so the
+body makes no host sync and a CUDA graph can hold it: the chained step
+captures one body on the card and replays it K times. Metrics stay on the
+device and the runner fetches them at its logging cadence.
 
 Gate semantics (as in the JAX package): the gates fire from the current
 step's rendered s_val/beta and take effect on the next step's update.
@@ -84,16 +91,17 @@ def edge_loss_fn(pred, target, loss_type: str):
     raise ValueError(f"unknown loss_type {loss_type!r}")
 
 
-def loss_and_grads(params, batch, step: int, generator, tcfg: TrainConfig,
-                   rcfg: RenderConfig, ucfg: UDFConfig):
+def loss_and_grads(params, batch, generator, tcfg: TrainConfig,
+                   rcfg: RenderConfig, ucfg: UDFConfig, cos_anneal_ratio,
+                   flip_saturation):
     """(loss, aux, grads) of the step's loss at `params` for a ray batch;
     grads has the params' tree layout (zeros for unused leaves). The render
-    jitter is drawn from `generator`."""
-    anneal = schedules.cos_anneal_ratio(step, tcfg.anneal_end)
-    flip_sat = schedules.flip_saturation(step, float(tcfg.end_iter))
+    jitter is drawn from `generator`; the two schedules are python floats
+    or 0-d tensors on the rays' device."""
     out = render(params, batch["rays_o"], batch["rays_d"], tcfg.near,
                  tcfg.far, batch["depth_scale"], generator, rcfg, ucfg,
-                 cos_anneal_ratio=anneal, flip_saturation=flip_sat)
+                 cos_anneal_ratio=cos_anneal_ratio,
+                 flip_saturation=flip_saturation)
     true_edge = batch["edge"]
     e_loss = edge_loss_fn(out["edge"], true_edge, tcfg.loss_type)
     loss = (e_loss * tcfg.edge_weight
@@ -139,16 +147,56 @@ def learning_rates(step: int, tcfg: TrainConfig):
         tcfg.learning_rate_alpha)
 
 
-def _label_trees(params, state: TrainState, lr: float, lr_geo: float):
-    """Per-leaf learning rates and trainability masks matching `params`."""
+def image_index(state: TrainState, n_images: int) -> int:
+    """The epoch-wise image permutation: a host-side draw per epoch, seeded
+    from the state's permutation root."""
+    epoch, pos = divmod(state.step, n_images)
+    gen = torch.Generator().manual_seed(state.perm_seed * 1_000_003 + epoch)
+    return int(torch.randperm(n_images, generator=gen)[pos])
+
+
+class StepInputs:
+    """What the host works out for a step, as 0-d tensors on the step's
+    device: the step counter (the variance gate), the image index, the two
+    render schedules and the two learning rates. `set` refreshes them in
+    place, one `fill_` each, which on the card is a launch and not a copy,
+    so a step captured in a CUDA graph reads the values of each replay."""
+
+    def __init__(self, device):
+        def zero(dtype=torch.float32):
+            return torch.zeros((), dtype=dtype, device=device)
+
+        self.step = zero(torch.int64)
+        self.img_idx = zero(torch.int64)
+        self.cos_anneal_ratio = zero()
+        self.flip_saturation = zero()
+        self.lr = zero()
+        self.lr_geo = zero()
+        # the field's trainability mask: always on
+        self.one = torch.ones((), dtype=torch.float32, device=device)
+
+    def set(self, step: int, img_idx: int, tcfg: TrainConfig) -> None:
+        lr, lr_geo = learning_rates(step, tcfg)
+        for t, v in ((self.step, step), (self.img_idx, img_idx),
+                     (self.cos_anneal_ratio,
+                      schedules.cos_anneal_ratio(step, tcfg.anneal_end)),
+                     (self.flip_saturation,
+                      schedules.flip_saturation(step, float(tcfg.end_iter))),
+                     (self.lr, lr), (self.lr_geo, lr_geo)):
+            t.fill_(v)
+
+
+def _label_trees(params, state: TrainState, inputs: StepInputs):
+    """Per-leaf learning rates and trainability masks matching `params`,
+    all 0-d tensors on the step's device."""
     lr_tree = {
-        "udf": tree_map(lambda _: lr_geo, params["udf"]),
-        "variance": tree_map(lambda _: lr, params["variance"]),
-        "beta": tree_map(lambda _: lr, params["beta"]),
+        "udf": tree_map(lambda _: inputs.lr_geo, params["udf"]),
+        "variance": tree_map(lambda _: inputs.lr, params["variance"]),
+        "beta": tree_map(lambda _: inputs.lr, params["beta"]),
     }
     var_mask = state.variance_trainable.to(torch.float32)
     mask_tree = {
-        "udf": tree_map(lambda _: 1.0, params["udf"]),
+        "udf": tree_map(lambda _: inputs.one, params["udf"]),
         "variance": tree_map(lambda _: var_mask, params["variance"]),
         "beta": {
             "beta": state.beta_trainable.to(torch.float32),
@@ -159,61 +207,62 @@ def _label_trees(params, state: TrainState, lr: float, lr_geo: float):
     return lr_tree, mask_tree
 
 
-def image_index(state: TrainState, n_images: int) -> int:
-    """The epoch-wise image permutation: a host-side draw per epoch, seeded
-    from the state's permutation root."""
-    epoch, pos = divmod(state.step, n_images)
-    gen = torch.Generator().manual_seed(state.perm_seed * 1_000_003 + epoch)
-    return int(torch.randperm(n_images, generator=gen)[pos])
+def step_body(state: TrainState, pool: RayPool, inputs: StepInputs,
+              tcfg: TrainConfig, rcfg: RenderConfig, ucfg: UDFConfig,
+              sample_fn=None) -> dict:
+    """The device work of one step, updating the state's tensors in place
+    and reading the step's values from `inputs` only: no host sync, no
+    copy from the host, so a CUDA graph can hold it. Returns the metrics
+    as 0-d device tensors. `state.step` is the caller's to advance.
+
+    `sample_fn` (tests only): `(state, pool) -> (batch, img_idx)` replaces
+    the ray sampling, so a prescribed batch goes through the unchanged
+    step."""
+    if sample_fn is not None:
+        batch, _ = sample_fn(state, pool)
+    else:
+        batch = sample_rays(pool, inputs.img_idx, state.generator,
+                            tcfg.batch_size,
+                            importance_sample=tcfg.importance_sample)
+
+    loss, aux, grads = loss_and_grads(state.params, batch, state.generator,
+                                      tcfg, rcfg, ucfg,
+                                      inputs.cos_anneal_ratio,
+                                      inputs.flip_saturation)
+    lr_tree, mask_tree = _label_trees(state.params, state, inputs)
+    adam_update(state.params, grads, state.opt, lr_tree, mask_tree)
+
+    # trainability gates, effective next step (in place: a captured step
+    # writes the state's own tensors)
+    trigger = ((aux["variance"] < 2.0 * aux["beta"]) & (aux["variance"] < 0.01)
+               & state.beta_gate_armed & state.variance_trainable)
+    state.beta_trainable |= trigger
+    state.beta_gate_armed &= ~trigger
+    state.variance_trainable |= inputs.step > 20000
+
+    metrics = dict(aux)
+    metrics.update(loss=loss, lr=inputs.lr.clone(),
+                   lr_geo=inputs.lr_geo.clone(),
+                   beta_trainable=state.beta_trainable.clone())
+    return metrics
 
 
 def train_step(state: TrainState, pool: RayPool, tcfg: TrainConfig,
                rcfg: RenderConfig, ucfg: UDFConfig, n_images: int,
                sample_fn=None) -> dict:
-    """One step, updating `state` in place. Returns the metrics as 0-d
-    device tensors (and python numbers for the host-side schedules).
-
-    `sample_fn` (tests only): `(state, pool) -> (batch, img_idx)` replaces
-    the ray sampling, so a prescribed batch goes through the unchanged
-    step."""
-    step = state.step
-    if sample_fn is not None:
-        batch, img_idx = sample_fn(state, pool)
-    else:
-        img_idx = image_index(state, n_images)
-        batch = sample_rays(pool, img_idx, state.generator, tcfg.batch_size,
-                            importance_sample=tcfg.importance_sample)
-
-    loss, aux, grads = loss_and_grads(state.params, batch, step,
-                                      state.generator, tcfg, rcfg, ucfg)
-    lr, lr_geo = learning_rates(step, tcfg)
-    lr_tree, mask_tree = _label_trees(state.params, state, lr, lr_geo)
-    adam_update(state.params, grads, state.opt, lr_tree, mask_tree)
-
-    # trainability gates, effective next step
-    trigger = ((aux["variance"] < 2.0 * aux["beta"]) & (aux["variance"] < 0.01)
-               & state.beta_gate_armed & state.variance_trainable)
-    state.beta_trainable = state.beta_trainable | trigger
-    state.beta_gate_armed = state.beta_gate_armed & ~trigger
-    if step > 20000:
-        state.variance_trainable = torch.ones_like(state.variance_trainable)
-    state.step = step + 1
-
-    metrics = dict(aux)
-    metrics.update(
-        loss=loss, lr=lr, lr_geo=lr_geo, img_idx=img_idx,
-        cos_anneal_ratio=schedules.cos_anneal_ratio(step, tcfg.anneal_end),
-        flip_saturation=schedules.flip_saturation(step, float(tcfg.end_iter)),
-        beta_trainable=state.beta_trainable,
-    )
+    """One eager step, updating `state` in place. Returns the metrics as
+    0-d device tensors."""
+    inputs = StepInputs(state.generator.device)
+    inputs.set(state.step, image_index(state, n_images), tcfg)
+    metrics = step_body(state, pool, inputs, tcfg, rcfg, ucfg, sample_fn)
+    state.step += 1
     return metrics
 
 
 def pack_metrics(metrics: dict) -> torch.Tensor:
-    """The METRIC_KEYS of a step as one float32 device vector."""
-    dev = metrics["loss"].device
-    return torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
-                                        device=dev).reshape(())
+    """The METRIC_KEYS of a step (0-d device tensors) as one float32 device
+    vector."""
+    return torch.stack([metrics[k].to(torch.float32).reshape(())
                         for k in METRIC_KEYS])
 
 
@@ -230,3 +279,115 @@ def build_train_step(tcfg: TrainConfig, rcfg: RenderConfig, ucfg: UDFConfig,
                           sample_fn=sample_fn)
 
     return step_fn
+
+
+class ChainedStep:
+    """`chain` training steps a call: the counterpart of the JAX package's
+    build_chained_train_step (`lax.scan` over the step). A call advances
+    the state by `chain` steps and returns their metric rows, a
+    (chain, len(METRIC_KEYS)) device tensor, with no host sync.
+
+    On the card the first call runs one eager step on a side stream (the
+    warm-up: cuBLAS, the kernel libraries and the allocator set themselves
+    up outside the capture), then captures one `step_body` into a
+    torch.cuda.CUDAGraph on that stream, with the state's generator
+    registered, and replays it for the chain's other steps; later calls
+    replay it `chain` times. Before each replay the host refreshes the
+    step's `StepInputs`; after it the graph's metric vector is copied out,
+    since the next replay overwrites it. The graph holds the addresses of
+    the state's tensors: a call with another state object captures again.
+    A capture or replay that fails raises; nothing falls back to eager
+    dispatch on the card. On the CPU the same step runs eagerly.
+
+    The kernel wrappers count a launch where they launch: the capture
+    counts the launches that the graph holds without running them, and a
+    replay runs them without counting. `captured_launches` and
+    `replayed_launches` keep both, so the kernels' runs are the wrappers'
+    counts less the one and plus the other."""
+
+    def __init__(self, tcfg: TrainConfig, rcfg: RenderConfig,
+                 ucfg: UDFConfig, n_images: int, chain: int, sample_fn=None):
+        if chain < 1:
+            raise ValueError(f"chain must be at least 1, got {chain}")
+        self.tcfg, self.rcfg, self.ucfg = tcfg, rcfg, ucfg
+        self.n_images, self.chain, self.sample_fn = n_images, chain, sample_fn
+        self.graph = None
+        self.inputs = None
+        self.vec = None  # the graph's metric vector
+        self._state = None
+        self.captured_launches: dict = {}
+        self.replayed_launches: dict = {}
+        self._per_replay: dict = {}
+
+    def _body(self, state, pool) -> dict:
+        return step_body(state, pool, self.inputs, self.tcfg, self.rcfg,
+                         self.ucfg, self.sample_fn)
+
+    def __call__(self, state: TrainState, pool: RayPool) -> torch.Tensor:
+        dev = state.generator.device
+        rows = torch.empty((self.chain, len(METRIC_KEYS)), dtype=torch.float32,
+                           device=dev)
+        if dev.type != "cuda":
+            for k in range(self.chain):
+                rows[k] = pack_metrics(train_step(
+                    state, pool, self.tcfg, self.rcfg, self.ucfg,
+                    self.n_images, self.sample_fn))
+            return rows
+        first = 0
+        if self.graph is None or self._state is not state:
+            self._capture(state, pool, rows[0])
+            first = 1
+        for k in range(first, self.chain):
+            self.inputs.set(state.step, image_index(state, self.n_images),
+                            self.tcfg)
+            self.graph.replay()
+            rows[k].copy_(self.vec)
+            state.step += 1
+            for name, n in self._per_replay.items():
+                self.replayed_launches[name] = (
+                    self.replayed_launches.get(name, 0) + n)
+        return rows
+
+    def _capture(self, state: TrainState, pool: RayPool, row) -> None:
+        """The warm-up step (a real step of the run, written to `row`) and
+        the capture of the next, which leaves the state as it was: a
+        capture records the work and runs none of it."""
+        from emap_tpu_torch.kernels import launch_counts
+
+        self.release()
+        dev = state.generator.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        self.inputs = StepInputs(dev)
+        with torch.cuda.stream(side):
+            self.inputs.set(state.step, image_index(state, self.n_images),
+                            self.tcfg)
+            row.copy_(pack_metrics(self._body(state, pool)))
+        main.wait_stream(side)
+        state.step += 1
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=side):
+            vec = pack_metrics(self._body(state, pool))
+        self._per_replay = {k: v - before[k]
+                            for k, v in launch_counts().items()}
+        for name, n in self._per_replay.items():
+            self.captured_launches[name] = (
+                self.captured_launches.get(name, 0) + n)
+        self.graph, self.vec, self._state = graph, vec, state
+
+    def release(self) -> None:
+        """Drop the graph, and with it its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.vec = self._state = None
+
+
+def build_chained_train_step(tcfg: TrainConfig, rcfg: RenderConfig,
+                             ucfg: UDFConfig, n_images: int, chain: int,
+                             sample_fn=None) -> ChainedStep:
+    """`chain` steps a call, with the configs bound (the counterpart of the
+    JAX package's build_chained_train_step): see ChainedStep."""
+    return ChainedStep(tcfg, rcfg, ucfg, n_images, chain, sample_fn)

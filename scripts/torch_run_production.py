@@ -23,7 +23,10 @@ PROD_STOP_AT (0: none) ends the training after that step and exits before
 the extraction; running the script again with the same PROD_OUT resumes
 the run exactly where it stopped (`--stop_at`, `--is_continue`), so a run
 longer than one sitting can be taken in parts. Its train_wall_s sums the
-parts.
+parts. The training dispatches the conf's chain of steps a call (500 for
+confs/ABC.conf) as CUDA graph replays; each part's `launches` counts the
+kernels' runs, replays included (`graph_launches` holds the capture's and
+the replays' shares).
 """
 
 from __future__ import annotations
@@ -79,18 +82,18 @@ def write_conf():
     return path, conf
 
 
-def launches() -> dict:
-    """The kernel wrappers' launch counts so far (0 on the CPU, where they
-    run their plain versions)."""
-    from emap_tpu_torch.kernels import mlp_query, mlp_train
+def since(before: dict, runner=None) -> dict:
+    """The kernels' runs since `before` (launch_counts()): the wrappers'
+    counts, less the launches that CUDA graph captures counted without
+    running them, plus those that the graph's replays ran uncounted."""
+    from emap_tpu_torch.kernels import launch_counts
 
-    return {"mlp_value_and_grad": mlp_query.value_and_grad.launches,
-            "mlp_train_bwd": mlp_train.train_bwd.launches,
-            "mlp_value": mlp_query.value.launches}
-
-
-def since(before: dict) -> dict:
-    return {k: v - before[k] for k, v in launches().items()}
+    out = {k: v - before[k] for k, v in launch_counts().items()}
+    if runner is not None:
+        for k in out:
+            out[k] += (runner.replayed_launches.get(k, 0)
+                       - runner.captured_launches.get(k, 0))
+    return out
 
 
 def main() -> dict:
@@ -101,6 +104,7 @@ def main() -> dict:
     from emap_tpu_torch.ckpt.native import load_pytree
     from emap_tpu_torch.cli import main as cli_main
     from emap_tpu_torch.eval.synthetic import score_extraction
+    from emap_tpu_torch.kernels import launch_counts
     from emap_tpu_torch.train import schedules
 
     os.makedirs(OUT, exist_ok=True)
@@ -123,10 +127,17 @@ def main() -> dict:
     start = int(load_pytree(stop_file)["iter_step"]) if resumed else 0
     if start < STOP_AT < end_iter:
         argv += ["--stop_at", str(STOP_AT)]
-    t0, before = time.time(), launches()
+    t0, before = time.time(), launch_counts()
     runner = cli_main(argv)
+    (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
+        runner.timeline[-1]
     parts.append({"from": start, "to": int(runner.state.step),
-                  "wall_s": time.time() - t0, "launches": since(before)})
+                  "wall_s": time.time() - t0,
+                  # from the first fetch to the last, validations included
+                  "ms_per_step": 1e3 * (tb - ta) / max(s1 - s0, 1),
+                  "launches": since(before, runner),
+                  "graph_launches": {"captured": runner.captured_launches,
+                                     "replayed": runner.replayed_launches}})
     with open(parts_file, "w") as f:
         json.dump(parts, f, indent=1)
     if runner.state.step < end_iter:
@@ -135,7 +146,7 @@ def main() -> dict:
         return {}
     train_wall = sum(p["wall_s"] for p in parts)
 
-    t1, before = time.time(), launches()
+    t1, before = time.time(), launch_counts()
     runner = cli_main(["--conf", conf_path, "--mode", "extract_edge",
                        "--device", DEVICE])
     extract_wall = time.time() - t1

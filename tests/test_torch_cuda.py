@@ -6,6 +6,8 @@ where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -236,3 +238,143 @@ def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     sass = subprocess.run([tool, "-sass", build.lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
     assert sass.count("HMMA") > 0
+
+
+def _train_conf(tmp_path, upsampling_type):
+    """confs/ABC.conf at d_hidden 64 on a 3-view 32x32 cube."""
+    from emap_tpu_torch import config
+    from emap_tpu_torch.data import make_synthetic_scene
+
+    data_dir = str(tmp_path / "data")
+    make_synthetic_scene(data_dir, scan="cube000", n_views=3, H=32, W=32)
+    conf = config.parse_file(os.path.join(os.path.dirname(os.path.dirname(
+        __file__)), "confs", "ABC.conf"))
+    conf["general.base_exp_dir"] = str(tmp_path / "exp")
+    conf["general.recording"] = []
+    conf["dataset.data_dir"] = data_dir
+    conf["dataset.scan"] = "cube000"
+    conf["train.batch_size"] = 64
+    conf["model.udf_network.d_hidden"] = 64
+    conf["model.udf_renderer.upsampling_type"] = upsampling_type
+    return conf
+
+
+def _runner(conf):
+    from emap_tpu_torch.train.runner import Runner
+
+    return Runner(conf, "train", device="cuda")
+
+
+def _snapshot(state) -> dict:
+    """Every tensor of a TrainState on the host: parameters, Adam moments
+    and counts, gates, step, and the generator's state."""
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key in sorted(tree)
+                    for k, v in flat(tree[key], f"{prefix}{key}/").items()}
+        return {prefix.rstrip("/"): np.asarray(tree)}
+
+    out = flat(checkpoint_payload(state, 0.0))
+    out["generator"] = state.generator.get_state().numpy()
+    return out
+
+
+def _assert_same(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _step_fns(runner, chain):
+    from emap_tpu_torch.train import step as tstep
+
+    args = (runner.tcfg, runner.rcfg, runner.ucfg, runner.scene.n_images)
+    return (tstep.build_train_step(*args),
+            tstep.build_chained_train_step(*args, chain))
+
+
+def _eager_rows(runner, n):
+    from emap_tpu_torch.train import step as tstep
+
+    single, _ = _step_fns(runner, 1)
+    return torch.stack([tstep.pack_metrics(single(runner.state, runner.pool))
+                        for _ in range(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("upsampling_type", ["classical", "mix"])
+def test_cuda_graph_steps_equal_eager_steps(cuda, tmp_path, upsampling_type):
+    """8 steps replayed from a CUDA graph of the step (two chained calls of
+    4: a warm-up step and the capture, 3 replays, then 4 replays) against 8
+    eager steps from the same state: every parameter, Adam moment and
+    count, gate, the step, the generator's state and the metric rows, bit
+    for bit; the kernel launches as reckoned."""
+    conf = _train_conf(tmp_path, upsampling_type)
+    eager, graphed = _runner(conf), _runner(conf)
+    want = _eager_rows(eager, 8)
+    _, chained = _step_fns(graphed, 4)
+    got = torch.cat([chained(graphed.state, graphed.pool) for _ in range(2)])
+    torch.cuda.synchronize()
+    assert graphed.state.step == eager.state.step == 8
+    assert torch.equal(got, want)
+    _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
+    # the capture counted one launch of each training kernel that the
+    # graph holds; 7 replays ran them
+    assert chained.captured_launches == {
+        "mlp_value_and_grad": 1, "mlp_train_bwd": 1, "mlp_value": 0}
+    assert chained.replayed_launches == {
+        "mlp_value_and_grad": 7, "mlp_train_bwd": 7, "mlp_value": 0}
+    chained.release()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_leaves_the_state_untouched(cuda, tmp_path):
+    """A chain of 1 runs the warm-up step and captures the next without
+    replaying it: the state after it is that of one eager step, the
+    generator's included, and the next steps replay as eager ones."""
+    conf = _train_conf(tmp_path, "classical")
+    eager, graphed = _runner(conf), _runner(conf)
+    want = _eager_rows(eager, 1)
+    _, chained = _step_fns(graphed, 1)
+    got = chained(graphed.state, graphed.pool)
+    torch.cuda.synchronize()
+    assert chained.graph is not None and graphed.state.step == 1
+    assert torch.equal(got, want)
+    _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
+    more = torch.cat([chained(graphed.state, graphed.pool) for _ in range(3)])
+    assert torch.equal(more, _eager_rows(eager, 3))
+    _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
+    chained.release()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_stop_and_resume_is_exact(cuda, tmp_path):
+    """Replays stopped after 4 steps, the state saved to the host and
+    restored into a new state object (the generator's state with it), and
+    4 more steps from a new capture: the state and rows of 8 steps that did
+    not stop."""
+    from emap_tpu_torch.ckpt.convert import state_from_payload
+
+    conf = _train_conf(tmp_path, "classical")
+    whole, split = _runner(conf), _runner(conf)
+    _, chained = _step_fns(whole, 4)
+    want = torch.cat([chained(whole.state, whole.pool) for _ in range(2)])
+    chained.release()
+    _, first = _step_fns(split, 4)
+    rows = [first(split.state, split.pool)]
+    first.release()
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+
+    payload = checkpoint_payload(split.state, 1.0)
+    gen = split.state.generator.get_state()
+    split.state = state_from_payload(payload, split.ucfg, split.tcfg.seed,
+                                     "cuda")
+    split.state.generator.set_state(gen)
+    _, second = _step_fns(split, 4)
+    rows.append(second(split.state, split.pool))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(rows), want)
+    _assert_same(_snapshot(split.state), _snapshot(whole.state))
+    second.release()

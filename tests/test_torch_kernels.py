@@ -71,6 +71,18 @@ def test_pack_weights_match():
         jcfg)))
 
 
+@pytest.mark.parametrize("multires", [10, 6, 4])
+def test_blocked_pe_columns_is_the_pe_permutation(multires):
+    """fold_weights reorders the encoded-input columns with a reshape and a
+    transpose (no index tensor to copy to the card): the same columns as
+    indexing by pe_perm, the JAX package's permutation."""
+    cfg = tudf.UDFConfig(multires=multires, d_hidden=64)
+    w = torch.randn(5, cfg.dims[0], generator=torch.Generator().manual_seed(0))
+    perm = np.asarray(jq._pe_perm(judf.UDFConfig(multires=multires,
+                                                 d_hidden=64)))
+    assert torch.equal(tq.blocked_pe_columns(w, cfg), w[:, perm])
+
+
 @pytest.mark.parametrize("udf_type", ["abs", "square"])
 def test_value_and_grad_plain_matches_pallas(udf_type):
     jcfg, tcfg, jp, tp = nets(udf_type, perturb=0.05)

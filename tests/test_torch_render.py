@@ -1,6 +1,7 @@
 """The port's sampling and renderer (emap_tpu_torch/render) against the JAX
 package on the CPU: the same rays, z values and field give the same
-samples, outputs and parameter gradients.
+samples, outputs and parameter gradients, with the "classical" and the
+"mix" up-sampler (and a training step with "mix").
 
 The JAX side runs at precision "highest" through XLA autodiff; the port's
 render_core takes its fused-kernel path (the kernels' plain versions on the
@@ -14,13 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from emap_tpu.data import dataset as jds
 from emap_tpu.fields import udf as judf
 from emap_tpu.render import renderer as jr
 from emap_tpu.render import sampling as js
+from emap_tpu.train import state as jstate
+from emap_tpu.train import step as jstep
+from emap_tpu_torch.ckpt import convert
 from emap_tpu_torch.ckpt.convert import params_from_numpy
 from emap_tpu_torch.fields import udf as tudf
 from emap_tpu_torch.render import renderer as tr
 from emap_tpu_torch.render import sampling as ts
+from emap_tpu_torch.train import step as tstep
 
 TOY = dict(d_hidden=64, n_layers=8, multires=4)
 B = 24
@@ -88,10 +94,23 @@ def test_render_config_matches():
 @pytest.mark.parametrize("option", [{"n_outside": 32},
                                     {"upsampling_type": "mix"}])
 def test_unported_render_options_raise(option):
-    """The NeRF++ background and the "mix" up-sampler are not ported: a conf
-    that selects them fails at once instead of rendering something else."""
-    with pytest.raises(NotImplementedError):
-        tr.RenderConfig(**option)
+    """The NeRF++ background is not ported: a conf that selects it fails at
+    once instead of rendering something else. The "mix" up-sampler is
+    ported: its config counts the samples it delivers as the JAX package's
+    does, the reference's under-delivery included (the renders and the step
+    are held to the JAX package below)."""
+    if "n_outside" in option:
+        with pytest.raises(NotImplementedError):
+            tr.RenderConfig(**option)
+        return
+    for n_importance, steps in ((50, 5), (10, 5), (12, 3), (0, 5)):
+        kw = dict(option, n_importance=n_importance, up_sample_steps=steps)
+        got, want = tr.RenderConfig(**kw), jr.RenderConfig(**kw)
+        assert got.n_importance_delivered == want.n_importance_delivered
+        assert got.total_samples == want.total_samples
+    assert tr.RenderConfig(**option).total_samples == 112  # ABC widths
+    with pytest.raises(ValueError, match="upsampling_type"):
+        tr.RenderConfig(upsampling_type="other")
 
 
 def test_query_field_refuses_nets_the_kernels_do_not_take():
@@ -278,6 +297,29 @@ def test_render_core_outputs_and_param_grads(pallas_train, render_core_case):
             assert max_rel(g, jg) < tol, k
 
 
+def test_cumprod_of_positives_matches_torch_cumprod():
+    """render_core's cumprod, whose backward makes no host sync: the value
+    of torch.cumprod, and its gradient to float32 roundoff, on factors
+    shaped like the renderer's (1, then 1 - alpha + 1e-7 with alpha in
+    [0, 1], some saturated)."""
+    rng = np.random.default_rng(6)
+    alpha = rng.uniform(0, 1, (B, 40)).astype(np.float32)
+    alpha[:, 5:9] = 1.0
+    x = torch.cat([torch.ones(B, 1), 1.0 - torch.as_tensor(alpha) + 1e-7],
+                  dim=-1)
+    g = torch.as_tensor(rng.normal(size=(B, 41)).astype(np.float32))
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = tr.cumprod_of_positives(a)
+    want = torch.cumprod(b, dim=-1)
+    assert torch.equal(out, want)
+    (ga,) = torch.autograd.grad(out, a, g)
+    (gb,) = torch.autograd.grad(want, b, g)
+    # the same formula, sums from the right divided by x; torch may order
+    # the terms otherwise
+    np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(gb.abs().max()))
+
+
 def test_eikonal_at_zero_gradient():
     """safe_l2norm's gradient is 0 (torch's subgradient), not NaN, where the
     spatial gradient is exactly zero (tests/test_render.py)."""
@@ -346,3 +388,111 @@ def test_render_matches():
         np.testing.assert_allclose(
             tout[k].detach().numpy(), np.asarray(jout[k]), rtol=1e-3,
             atol=1e-4, err_msg=k)
+
+
+def test_importance_sample_mix_same_z_vals():
+    """The "mix" up-sampler: five occlusion-blind rounds with the learned
+    gamma, one unbiased round, and their merges."""
+    jcfg, tcfg, jp, tp, rays_o, rays_d = scene()
+    z0 = np.broadcast_to(np.linspace(0.05, 4.5, 16, dtype=np.float32),
+                         (B, 16)).copy()
+    beta, gamma = 150.0, 25.0
+
+    def jrun(ro, rd, z):
+        fn = lambda p: judf.udf_value(jp["udf"], p, jcfg)  # noqa: E731
+        return js.importance_sample_mix(fn, ro, rd, z, 0.3, 12, 5,
+                                        jnp.float32(beta), jnp.float32(gamma))
+
+    want = jax.jit(jrun)(jnp.asarray(rays_o), jnp.asarray(rays_d),
+                         jnp.asarray(z0))
+    fn = lambda p: tudf.udf_value(tp["udf"], p, tcfg)  # noqa: E731
+    got = ts.importance_sample_mix(
+        fn, torch.as_tensor(rays_o), torch.as_tensor(rays_d),
+        torch.as_tensor(z0), 0.3, 12, 5, torch.tensor(beta),
+        torch.tensor(gamma))
+    assert got.shape == want.shape == (B, 16 + 12)
+    # the tolerance of test_importance_sample_same_z_vals, for its reasons
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                               atol=2e-3)
+
+
+def test_render_mix_matches():
+    """render() with upsampling_type = "mix", end to end without jitter:
+    the learned beta/gamma, clipped, reach the up-sampler as in the JAX
+    package."""
+    jcfg, tcfg, jp, tp, rays_o, rays_d = scene()
+    jrc, trc = rcfgs(perturb=1.0, n_importance=12, upsampling_type="mix")
+    ds = np.ones((B, 1), np.float32)
+    jout = jax.jit(lambda p, ro, rd, d: jr.render(
+        p, ro, rd, 0.05, 4.5, d, jax.random.key(0), jrc, jcfg,
+        cos_anneal_ratio=0.5, perturb_overwrite=0.0))(
+        jp, jnp.asarray(rays_o), jnp.asarray(rays_d), jnp.asarray(ds))
+    tout = tr.render(tp, torch.as_tensor(rays_o), torch.as_tensor(rays_d),
+                     0.05, 4.5, torch.as_tensor(ds), None, trc, tcfg,
+                     cos_anneal_ratio=0.5, perturb_overwrite=0.0)
+    assert tout["mid_z_vals"].shape == (B, 16 + 12)
+    # the samples to the tolerance of test_importance_sample_same_z_vals,
+    # for its reasons (the mix rounds run at inv_s up to 1024 with the
+    # learned gamma: 3 of 672 samples move by 4.3e-4 here); the outputs to
+    # those of test_render_matches
+    np.testing.assert_allclose(tout["mid_z_vals"].numpy(),
+                               np.asarray(jout["mid_z_vals"]), rtol=1e-3,
+                               atol=2e-3)
+    for k in ("edge", "depth", "weight_sum", "gradient_error", "normals"):
+        np.testing.assert_allclose(
+            tout[k].detach().numpy(), np.asarray(jout[k]), rtol=1e-3,
+            atol=1e-4, err_msg=k)
+
+
+def test_train_step_with_mix_matches():
+    """One training step with the "mix" up-sampler against the JAX
+    package's step on the same prescribed batch (perturb 0): the metrics,
+    and the field's gradients read from Adam's first moment, to the
+    tolerances of tests/test_torch_train.py's three-step comparison."""
+    jucfg = judf.UDFConfig(precision="highest", **TOY)
+    tucfg = tudf.UDFConfig(**TOY)
+    render_kw = dict(n_samples=8, n_importance=12, up_sample_steps=5,
+                     perturb=0.0, upsampling_type="mix")
+    train_kw = dict(batch_size=B, end_iter=100, learning_rate=0.0,
+                    warm_up_end=1.0, anneal_end=2.0, fix_geo_end=0.0,
+                    near=0.05, far=4.5)
+    jst = jstate.init_train_state(0, jucfg, variance_init=0.5, beta_init=0.5,
+                                  gamma_init=0.3, zeta_init=0.3)
+    flags = {k: bool(getattr(jst, k)) for k in convert.FLAG_KEYS}
+    tst = convert.make_state(convert.params_from_numpy(
+        jax.tree.map(np.asarray, jst.params), tucfg, device="cpu"), 0, "cpu",
+        flags=flags)
+    _, _, _, _, rays_o, rays_d = scene()
+    rng = np.random.default_rng(5)
+    batch = {"rays_o": rays_o, "rays_d": rays_d,
+             "edge": rng.uniform(0, 1, (B, 1)).astype(np.float32),
+             "depth_scale": np.ones((B, 1), np.float32),
+             "rays_ndc_uv": np.zeros((B, 2), np.float32)}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    jpool = jds.RayPool(edges=jnp.zeros((1, 4)), cdf=jnp.zeros((1, 4)),
+                        intrinsics_inv=jnp.eye(3)[None], rot=jnp.eye(3)[None],
+                        origin=jnp.zeros((1, 3)), H=2, W=2, n_images=1)
+    jfn = jstep.build_train_step(
+        jstep.TrainConfig(**train_kw),
+        jr.RenderConfig(sampler_precision="highest", **render_kw), jucfg, 1,
+        donate=False, sample_fn=lambda s, p, k: (jbatch, jnp.int32(0)))
+    tfn = tstep.build_train_step(
+        tstep.TrainConfig(**train_kw), tr.RenderConfig(**render_kw), tucfg, 1,
+        sample_fn=lambda s, p: (tbatch, 0))
+    jst, jm = jfn(jst, jpool)
+    tm = tfn(tst, None)
+    for k in tstep.METRIC_KEYS:
+        assert float(tm[k]) == pytest.approx(float(jm[k]), rel=2e-5,
+                                             abs=1e-6), k
+    got = sorted_leaves(tst.opt.mu["udf"])
+    want = [np.asarray(w) for w in sorted_leaves(
+        jax.tree.map(np.asarray, jst.opt.mu["udf"]))]
+    scale = max(np.abs(w).max() for w in want)
+    for g, w in zip(got, want):
+        g = g.numpy()
+        # FIELD_RTOL of tests/test_torch_train.py: against the field's
+        # largest gradient, and leaf by leaf for multi-element leaves
+        assert np.abs(g - w).max() <= 3e-4 * scale
+        if g.size > 1:
+            assert max_rel(g, w) < 3e-4
