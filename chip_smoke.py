@@ -8,17 +8,23 @@ Phases, each fatal on failure (nonzero exit, no result line):
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
      and count the tensor-core instructions (HMMA) in every kernel
      library's SASS;
-  3. hold each kernel against its plain PyTorch version on the card, output
+  3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
+     against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
-     the reckoned bounds (fp32 FMA; the tensor cores at one TF32 pass and
-     at the design's three) and the achieved rate: the training query and backward at the step's
+     the reckoned bounds (fp32 FMA or, at the bf16 tier, bf16 tensor cores;
+     the tensor cores at one TF32 pass and at the 3xTF32 design's three)
+     and the achieved rate: the training query and backward at the step's
      N = 1024 rays x 114 samples = 116,736 points, and the extraction's
      grid value query at its two launch shapes, a 128^3 grid pass
      (2,097,152 points, the ABC conf) and one GRID_CHUNK of a 256^3 pass
-     (4,194,304 points, the DTU and Replica confs); two launches of each
-     kernel on the same inputs must agree bit for bit;
+     (4,194,304 points, the DTU and Replica confs); a bf16-tier kernel is
+     also held against the fp32 plain version, and must sit nearer its own
+     tier's; two launches of each kernel on the same inputs must agree bit
+     for bit;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
-     it, train END_ITER steps at full ABC width through
+     it (its tiers: the training field query and the up-sampler at the bf16
+     tier "default", extraction at "high"), train END_ITER steps at full
+     ABC width through
      `emap_tpu_torch.cli.main(... --mode train)` with one validation at the
      last step (the runner's default chain for these cadences, 5: a warm-up
      step and a capture, then CUDA graph replays), check that the training
@@ -55,7 +61,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
   7. score phase 6's parametric_edges.json against the cube's analytic
      edges with the ABC protocol (emap_tpu_torch/eval/synthetic.py):
      F@5/10/20 mm, chamfer, the line and curve counts; F@20mm must reach
-     F20_MIN.
+     F20_MIN;
+  9. the routes the tier keys select, each a run of the CLI on a copy of
+     the smoke conf with the keys pinned: `precision = "highest"` trains
+     through plain autograd (no kernel launch); `field_precision = "high"`
+     through the 3xTF32 kernels; `field_precision = "high"` with
+     `bwd_precision = "default"` through #2 at that mixed pair;
+     `precision = "default"` extracts phase 6's field through the bf16
+     grid and sweep kernels (one threshold, one fit), whose sliced
+     value-and-gradient query is then held against its plain version.
+Each kernel row's `launches` is its kernel and tier's count in the run of
+the path that runs it: the main path (phases 4 and 6) or a phase 9 run.
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script fails.
@@ -75,6 +91,7 @@ import time
 END_ITER = 20
 FP32_PEAK = 67e12  # H100 SXM fp32 FMA peak, FLOP/s (NVIDIA data sheet)
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core peak, FLOP/s
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 # The training kernels run each product as three TF32 passes (3xTF32, fp32
 # accuracy). Beside the row's bound_ms (fp32 FMA) the kernel line prints two
@@ -90,6 +107,38 @@ TC_PASSES = 3
 # entry: udf and the spatial gradient, and each layer's weight and bias
 # gradient (the packed W-bar spans 5 orders of magnitude across layers).
 KERNEL_RTOL = 1e-4
+# The bf16 tier ("default": one bf16 pass, operands rounded to nearest
+# even) against its plain version at the same tier. Both round the same
+# operands, but each operand of a layer past the first is computed in fp32
+# with sums in another order, and where that roundoff straddles a bf16
+# rounding boundary the two round it to neighbouring bf16 values: a flip,
+# one bf16 ulp, 2^-8 to 2^-7 of the operand. A flip moves its product term
+# by up to 2^-7 = 7.8e-3 of that term and the layers after it carry the
+# change on. Flips are rare (fp32 roundoff ~1e-7 against a bf16 half-ulp
+# ~2e-3) but a block's max finds them: on the CPU at ABC width, the same
+# bf16 tier summed in fp32 against fp64 differs by 2.1e-3 (udf), 3.5e-3
+# (gradient) of the block's largest at 65,536 points and 2.1e-3 in the
+# worst W-bar block at 4,096 (geometric init, the weights of this phase).
+# The bound, 1e-2, is a little above one flip's 2^-7 and ~3x the largest
+# measured; it is looser than KERNEL_RTOL because a flip is one bf16 ulp,
+# not fp32 roundoff. A tier that silently computes fp32 passes that bound
+# (its error against the bf16 plain version is the tier's own, ~5e-3), so
+# each bf16-tier row must also sit nearer its own tier's plain version than
+# the fp32 one: its mean error against the bf16 plain version (flips alone:
+# sparse) at most 1/BF16_SEPARATION of the mean error against the fp32
+# plain version (the tier's error: everywhere). Measured on the CPU against
+# the JAX package's kernels (tests/test_torch_precision.py): 41x to 640x,
+# 2.6x for #2 at an fp32 primal and a bf16 adjoint.
+BF16_KERNEL_RTOL = 1e-2
+BF16_SEPARATION = 2.0
+# The tiers a path runs each kernel at (conf names: precision or the
+# (primal, adjoint) pair): the ABC conf's bf16 training query, the fp32
+# extraction, and what phase 9's pinned confs select.
+KERNEL_TIERS = {
+    "mlp_value_and_grad": (("default", ""), ("high", "")),
+    "mlp_train_bwd": (("default", ""), ("high", ""), ("high", "default")),
+    "mlp_value": (("default", ""), ("high", "")),
+}
 # Kernel path vs autograd (cuBLAS) path through the whole step: the same
 # math with other roundoff, amplified by the renderer's steep sigmoids
 # and the abs head's sign; measured ~1e-5 max relative error on the first
@@ -97,6 +146,16 @@ KERNEL_RTOL = 1e-4
 # holds its fused kernels to.
 STEP_GRAD_RTOL = 3e-4
 STEP_LOSS_RTOL = 1e-5
+# The same at the bf16 tier: both paths round the same operands to bf16, so
+# they differ by flips (above), and the more points, the more flips meet the
+# renderer's steep sigmoids: at ABC width the worst leaf measured 1.9e-4
+# with 32 rays and 1.4e-2 with 128 on the CPU, 3.0e-2 (udf/lin0/v) with
+# 1,024 on an H100; the loss 2.8e-7, 1.0e-5 and 1.1e-5. The kernel path at
+# the fp32 tier sits 0.24 away (H100, 1,024 rays), so the bf16 kernel path
+# must also sit STEP_SEPARATION times nearer the bf16 autograd path.
+STEP_GRAD_RTOL_BF16 = 0.1
+STEP_LOSS_RTOL_BF16 = 1e-4
+STEP_SEPARATION = 3.0
 GRID_N = 128 ** 3  # confs/ABC.conf edge_extraction.resolution
 # Phase 6's fixture: Adam steps of the field regression onto the cube's
 # edge UDF, and the bar for the fitted edges: under one voxel of the
@@ -114,6 +173,8 @@ F20_MIN = 0.95
 # Phase 8: the CUDA graph's replays against eager steps, two chained calls
 # of this many steps from one state.
 GRAPH_CHAIN = 20
+# Phase 9: steps of each training route's run (one chained call).
+ROUTE_ITER = 5
 
 
 def smi_line() -> str:
@@ -150,6 +211,56 @@ def errors(got: dict, want: dict) -> tuple:
         if r > rel:
             rel, worst = r, name
     return abs_err, rel, worst
+
+
+def mean_error(got: dict, want: dict) -> float:
+    """The largest over named blocks of mean |got - want| / max |want|."""
+    return max(float((got[k] - w).abs().mean()) / (float(w.abs().max())
+                                                  + 1e-30)
+               for k, w in want.items())
+
+
+def at_tier(ucfg, tier: tuple):
+    """ucfg at a (precision, bwd_precision) pair of conf tier names."""
+    import dataclasses
+
+    return dataclasses.replace(ucfg, precision=tier[0], bwd_precision=tier[1])
+
+
+def tier_name(kernel: str, ucfg) -> str:
+    """The wrappers' tier name of `kernel` at ucfg's tiers (the key of its
+    tier_launches): "bf16", "3xtf32", or #2's (primal, adjoint) pair."""
+    from emap_tpu_torch.fields.udf import adjoint_tier
+    from emap_tpu_torch.kernels import mlp_query, mlp_train
+
+    primal = mlp_query.kernel_tier(ucfg.precision)
+    if kernel == "mlp_train_bwd":
+        return mlp_train.pair_name(
+            primal, mlp_query.kernel_tier(adjoint_tier(ucfg)))
+    return mlp_query.TIER_NAMES[primal]
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    from emap_tpu_torch.kernels import mlp_query, mlp_train
+
+    for fn in (mlp_query.value_and_grad, mlp_query.value, mlp_train.train_bwd):
+        fn.launches = 0
+        fn.tier_launches = dict.fromkeys(fn.tier_launches, 0)
+
+
+def ran(runner=None) -> dict:
+    """The kernels' runs since zero_counts(), by "<kernel>/<tier>": the
+    wrappers' counts, less the launches that the runner's CUDA graph
+    captures counted without running them, plus those its replays ran."""
+    from emap_tpu_torch.kernels import launch_counts
+
+    out = launch_counts()
+    if runner is not None:
+        for k in out:
+            out[k] += (runner.replayed_launches.get(k, 0)
+                       - runner.captured_launches.get(k, 0))
+    return out
 
 
 def named_leaves(tree, prefix: str = "") -> dict:
@@ -194,39 +305,91 @@ def query_blocks(out):
 
 def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
                nbytes, flops) -> dict:
-    """One kernel against its plain version on the same inputs, block by
-    block, both timed on those inputs, beside the bound for that work."""
+    """One kernel against its plain version on the same inputs at ucfg's
+    tier(s), block by block, both timed on those inputs, beside the bound
+    for that work. `flops` is (FLOP at the primal tier, FLOP at the adjoint
+    tier). At a bf16 tier the kernel is also held against the fp32 plain
+    version (BF16_SEPARATION); the bound counts each tier's FLOP at its
+    peak: bf16 tensor cores, or fp32 FMA for the fp32 tiers."""
     import torch
 
+    from emap_tpu_torch.fields.udf import adjoint_tier
+
+    tier = tier_name(name, ucfg)
+    tiers = (ucfg.precision, adjoint_tier(ucfg))
     ms, got = time_ms(lambda: kern(*args, ucfg), 3)
     plain_ms, want = time_ms(lambda: plain(*args, ucfg), 2)
     got, want = blocks(got), blocks(want)
+    bf16 = "default" in tiers
+    if bf16:
+        want32 = blocks(plain(*args, at_tier(ucfg, ("high", ""))))
+        _, rel32, worst32 = errors(got, want32)
+        own, fp32 = mean_error(got, want), mean_error(got, want32)
+        got, flips = head_signs(got, want)
     abs_err, rel_err, worst = errors(got, want)
-    t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
+    t_ops = sum(f / (BF16_PEAK if t == "default" else FP32_PEAK)
+                for f, t in zip(flops, tiers))
+    t_bytes, total = nbytes / HBM_RATE, sum(flops)
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    tf32_ms = 1e3 * max(t_bytes, flops / TF32_PEAK)
-    tc_ms = 1e3 * max(t_bytes, TC_PASSES * flops / TF32_PEAK)
-    print(f"kernel {name}: max abs err {abs_err:.3e}, max rel err "
-          f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
-          f"{KERNEL_RTOL:g}); {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms fp32 FMA; tensor cores {tf32_ms:.3f} ms at one "
-          f"TF32 pass, {tc_ms:.3f} ms at the design's {TC_PASSES} "
-          f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB; "
-          f"{flops / (ms * 1e9):.1f} TFLOP/s achieved), "
+    tf32_ms = 1e3 * max(t_bytes, total / TF32_PEAK)
+    tc_ms = 1e3 * max(t_bytes, TC_PASSES * total / TF32_PEAK)
+    bf16_ms = 1e3 * max(t_bytes, total / BF16_PEAK)
+    row = {
+        "name": f"{name}/{tier}", "route": "cuda", "source": src,
+        "replaces": replaces, "tier": tier, "launches": 0,
+        "max_abs_err": abs_err, "max_rel_err": rel_err, "worst_block": worst,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "n": args[0].shape[1],
+    }
+    tol = BF16_KERNEL_RTOL if bf16 else KERNEL_RTOL
+    line = (f"kernel {name}/{tier}: max abs err {abs_err:.3e}, max rel err "
+            f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
+            f"{tol:g})")
+    if bf16:
+        row.update(max_rel_err_vs_fp32=rel32, mean_err=own,
+                   mean_err_vs_fp32=fp32, head_sign_flips=flips)
+        line += (f"; {flips} points of opposite head sign; against the fp32 "
+                 f"plain version {rel32:.3e} in block {worst32}; mean err "
+                 f"{own:.3e}, against fp32 {fp32:.3e} (separation "
+                 f"{BF16_SEPARATION:g})")
+    print(f"{line}; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({'bf16 tensor cores' if bf16 else 'fp32 FMA'}"
+          f"); tensor cores {bf16_ms:.3f} ms at one bf16 pass, {tf32_ms:.3f} "
+          f"ms at one TF32 pass, {tc_ms:.3f} ms at {TC_PASSES} "
+          f"({total / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{total / (ms * 1e9):.1f} TFLOP/s achieved), "
           f"N={args[0].shape[1]}", flush=True)
     check(all(bool(torch.isfinite(g).all()) for g in got.values()),
-          f"{name} gave non-finite values")
-    check(rel_err <= KERNEL_RTOL, f"{name} disagrees with its plain "
+          f"{name}/{tier} gave non-finite values")
+    check(rel_err <= tol, f"{name}/{tier} disagrees with its plain "
           f"version: max rel err {rel_err:.3e} in block {worst}")
-    return {
-        "name": name, "route": "cuda", "source": src,
-        "replaces": replaces, "launches": 0, "max_abs_err": abs_err,
-        "max_rel_err": rel_err, "worst_block": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-        "n": args[0].shape[1],
-    }
+    if bf16:
+        check(BF16_SEPARATION * row["mean_err"] <= row["mean_err_vs_fp32"],
+              f"{name}/{tier} is no nearer its tier's plain version than the "
+              f"fp32 one: mean err {row['mean_err']:.3e} against "
+              f"{row['mean_err_vs_fp32']:.3e}")
+    return row
+
+
+def head_signs(got: dict, want: dict) -> tuple:
+    """(got with its spatial gradient's sign taken from want at the points
+    where the two have opposite signs, the count of those points). The abs
+    head's d|y0|/dy0 = sign(y0) turns over at the surface, so where y0 lies
+    within the bf16 tier's roundoff of 0 the kernel and its plain version
+    may take opposite signs: the gradient is held up to that sign, and a
+    point may differ in sign only where its udf is within the udf bound
+    (BF16_KERNEL_RTOL of the block's largest) of 0."""
+    import torch
+
+    if "grad" not in want:
+        return got, 0
+    g, w = got["grad"], want["grad"]
+    flip = (g + w).abs().amax(0) < (g - w).abs().amax(0)
+    far = want["udf"][flip] > BF16_KERNEL_RTOL * float(want["udf"].max())
+    check(not bool(far.any()), f"{int(far.sum())} points take the opposite "
+          f"head sign away from the surface")
+    return dict(got, grad=torch.where(flip, -g, g)), int(flip.sum())
 
 
 def same_bits(name, kern, args, ucfg) -> None:
@@ -234,6 +397,7 @@ def same_bits(name, kern, args, ucfg) -> None:
     atomics, sums in a fixed order)."""
     import torch
 
+    name = f"{name}/{tier_name(name, ucfg)}"
     first, second = kern(*args, ucfg), kern(*args, ucfg)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
@@ -272,9 +436,23 @@ def packed_weights(ucfg):
     return w.contiguous(), b.contiguous()
 
 
+def bwd_flops(ucfg) -> tuple:
+    """#2's FLOP a point at its (primal, adjoint) tiers: the forward
+    recompute and the gradient chain, then the ascend, descend and both
+    weight-gradient products (kernels/mlp_train.py::train_bwd_flops)."""
+    from emap_tpu_torch.kernels import mlp_train
+
+    shapes = [(i, o) for _, i, o in ucfg.layer_shapes()]
+    total = sum(i * o for i, o in shapes)
+    first = shapes[0][0] * shapes[0][1]
+    primal = 2 * (2 * total - first)
+    return primal, mlp_train.train_bwd_flops(ucfg) - primal
+
+
 def kernel_phase(ucfg, n: int) -> list:
     """The training kernels at the step's shape and the grid value kernel
-    at its two launch shapes, each against its plain version."""
+    at its two launch shapes, each at each of its KERNEL_TIERS against its
+    plain version at that tier."""
     import torch
 
     from emap_tpu_torch.extract.pointcloud import GRID_CHUNK
@@ -287,6 +465,7 @@ def kernel_phase(ucfg, n: int) -> list:
     gbar = torch.zeros(8, n, device="cuda")
     gbar[:3] = torch.randn(3, n, generator=gen, device="cuda")
     grid_x = raw_points(gen, GRID_N)
+    chunk_x = raw_points(gen, GRID_CHUNK)
 
     def value_blocks(out):
         return {"udf": out}
@@ -296,49 +475,56 @@ def kernel_phase(ucfg, n: int) -> list:
         return {f"lin{l}/{k}": t for l, (wl, bl) in enumerate(layers)
                 for k, t in (("W", wl), ("b", bl))}
 
-    same_bits("mlp_value_and_grad", mlp_query.value_and_grad, (x, w, b),
-              ucfg)
-    same_bits("mlp_train_bwd", mlp_train.train_bwd, (x, w, b, ubar, gbar),
-              ucfg)
-    same_bits("mlp_value", lambda *a: (mlp_query.value(*a),), (grid_x, w, b),
-              ucfg)
     f32 = 4
     pack_bytes = f32 * (w.numel() + b.numel())
 
-    def value_row(points):
+    def value_row(points, cfg):
         count = points.shape[1]
         return kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
-                          value_blocks, (points, w, b), ucfg,
+                          value_blocks, (points, w, b), cfg,
                           "emap_tpu_torch/csrc/mlp_value.cu",
                           "emap_tpu/kernels/mlp_query.py:328",
                           f32 * (8 * count + count) + pack_bytes,
-                          mlp_query.value_flops(ucfg) * count)
+                          (mlp_query.value_flops(cfg) * count, 0))
 
-    rows = [
-        kernel_row("mlp_value_and_grad", mlp_query.value_and_grad,
-                   mlp_query.value_and_grad_plain, query_blocks, (x, w, b),
-                   ucfg, "emap_tpu_torch/csrc/mlp_query.cu",
-                   "emap_tpu/kernels/mlp_query.py:363",
-                   f32 * (8 * n + n + 8 * n) + pack_bytes,
-                   mlp_query.query_flops(ucfg) * n),
-        kernel_row("mlp_train_bwd", mlp_train.train_bwd,
-                   mlp_train.train_bwd_plain, bwd_blocks,
-                   (x, w, b, ubar, gbar), ucfg,
-                   "emap_tpu_torch/csrc/mlp_train.cu",
-                   "emap_tpu/kernels/mlp_train.py:417",
-                   f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
-                   mlp_train.train_bwd_flops(ucfg) * n),
-        value_row(grid_x),
-    ]
-    # one GRID_CHUNK of a 256^3 pass: printed beside its bounds; the kernels
-    # line keeps the ABC pass, the shape this run's extraction launches
-    value_row(raw_points(gen, GRID_CHUNK))
+    rows = []
+    for tier in KERNEL_TIERS["mlp_value_and_grad"]:
+        cfg = at_tier(ucfg, tier)
+        same_bits("mlp_value_and_grad", mlp_query.value_and_grad, (x, w, b),
+                  cfg)
+        rows.append(kernel_row(
+            "mlp_value_and_grad", mlp_query.value_and_grad,
+            mlp_query.value_and_grad_plain, query_blocks, (x, w, b), cfg,
+            "emap_tpu_torch/csrc/mlp_query.cu",
+            "emap_tpu/kernels/mlp_query.py:363",
+            f32 * (8 * n + n + 8 * n) + pack_bytes,
+            (mlp_query.query_flops(cfg) * n, 0)))
+    for tier in KERNEL_TIERS["mlp_train_bwd"]:
+        cfg = at_tier(ucfg, tier)
+        same_bits("mlp_train_bwd", mlp_train.train_bwd,
+                  (x, w, b, ubar, gbar), cfg)
+        rows.append(kernel_row(
+            "mlp_train_bwd", mlp_train.train_bwd, mlp_train.train_bwd_plain,
+            bwd_blocks, (x, w, b, ubar, gbar), cfg,
+            "emap_tpu_torch/csrc/mlp_train.cu",
+            "emap_tpu/kernels/mlp_train.py:417",
+            f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
+            tuple(f * n for f in bwd_flops(cfg))))
+    for tier in KERNEL_TIERS["mlp_value"]:
+        cfg = at_tier(ucfg, tier)
+        same_bits("mlp_value", lambda *a: (mlp_query.value(*a),),
+                  (grid_x, w, b), cfg)
+        rows.append(value_row(grid_x, cfg))
+        # one GRID_CHUNK of a 256^3 pass: printed beside its bounds; the
+        # kernels line keeps the ABC pass, the shape this run's extraction
+        # launches
+        value_row(chunk_x, cfg)
     return rows
 
 
 def sliced_row(ucfg, n: int) -> dict:
     """The sliced value-and-gradient query at n points (one line-direction
-    call of the extraction) against its plain version."""
+    call of the extraction) against its plain version, at ucfg's tier."""
     import torch
 
     from emap_tpu_torch.kernels import mlp_query
@@ -346,13 +532,15 @@ def sliced_row(ucfg, n: int) -> dict:
     w, b = packed_weights(ucfg)
     x = raw_points(torch.Generator(device="cuda").manual_seed(2), n)
     f32 = 4
-    return kernel_row(
-        "mlp_value_and_grad_sliced", mlp_query.value_and_grad_sliced,
+    row = kernel_row(
+        "mlp_value_and_grad", mlp_query.value_and_grad_sliced,
         sliced_plain, query_blocks, (x, w, b), ucfg,
         "emap_tpu_torch/csrc/mlp_query.cu",
         "emap_tpu/kernels/mlp_query.py:363",
         f32 * (8 * n + n + 8 * n + w.numel() + b.numel()),
-        mlp_query.query_flops(ucfg) * n)
+        (mlp_query.query_flops(ucfg) * n, 0))
+    row["name"] = f"mlp_value_and_grad_sliced/{row['tier']}"
+    return row
 
 
 def write_run_conf(tmp: str) -> str:
@@ -382,7 +570,9 @@ def write_run_conf(tmp: str) -> str:
 
 def first_step_check(conf_path: str, cli_loss: float) -> None:
     """The first step's loss and grads from a fresh state: kernel path vs
-    the CLI's first step and vs the plain autograd path."""
+    the CLI's first step and vs the plain autograd path, both at the conf's
+    tiers; at the bf16 tier the kernel path must also sit nearer the
+    autograd path than the kernel path at the fp32 tier."""
     import dataclasses
 
     import torch
@@ -410,16 +600,34 @@ def first_step_check(conf_path: str, cli_loss: float) -> None:
     loss_k, loss_p = float(loss_k), float(loss_p)
     gk, gp = named_leaves(grads_k), named_leaves(grads_p)
     _, grad_rel, worst = errors(gk, gp)
-    print(f"first step: CLI loss {cli_loss:.7f}, kernel path {loss_k:.7f}, "
-          f"autograd path {loss_p:.7f}; grads max rel err {grad_rel:.3e} in "
-          f"{worst} (tolerance {STEP_GRAD_RTOL:g})", flush=True)
+    bf16 = "default" in (runner.tiers["field"], runner.tiers["adjoint"])
+    tol = STEP_GRAD_RTOL_BF16 if bf16 else STEP_GRAD_RTOL
+    loss_tol = STEP_LOSS_RTOL_BF16 if bf16 else STEP_LOSS_RTOL
+    print(f"first step at the tiers {runner.tiers}: CLI loss "
+          f"{cli_loss:.7f}, kernel path {loss_k:.7f}, autograd path "
+          f"{loss_p:.7f}; grads max rel err {grad_rel:.3e} in {worst} "
+          f"(tolerance {tol:g})", flush=True)
+    if bf16:
+        st.generator.set_state(gen_state)
+        fp32 = dataclasses.replace(runner.rcfg, field_precision="high",
+                                   sampler_precision="high")
+        loss_f, _, grads_f = loss_and_grads(
+            st.params, batch, st.generator, tcfg, fp32,
+            dataclasses.replace(runner.ucfg, bwd_precision=""), *at_0)
+        _, rel_f, worst_f = errors(gk, named_leaves(grads_f))
+        print(f"first step: the kernel path at the fp32 tier, loss "
+              f"{float(loss_f):.7f}, grads max rel err {rel_f:.3e} in "
+              f"{worst_f} from the bf16 kernel path", flush=True)
+        check(STEP_SEPARATION * grad_rel < rel_f, "the bf16 kernel path is "
+              "not nearer the bf16 autograd path than the fp32 kernel path")
     check(abs(loss_k - cli_loss) <= STEP_LOSS_RTOL * abs(cli_loss),
           "the CLI's first step differs from the kernel path's replay")
-    check(abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p),
-          "kernel-path loss differs from the autograd path")
+    check(abs(loss_k - loss_p) <= loss_tol * abs(loss_p),
+          f"kernel-path loss differs from the autograd path (tolerance "
+          f"{loss_tol:g})")
     check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
           "non-finite gradients")
-    check(grad_rel <= STEP_GRAD_RTOL,
+    check(grad_rel <= tol,
           f"kernel-path grads differ from autograd: {grad_rel:.3e}")
 
 
@@ -514,6 +722,16 @@ def step_phase(runner, smi: str) -> float:
     return prof["host_calls"]
 
 
+def train_keys(runner) -> dict:
+    """The launch-count keys of the training kernels at the runner's
+    resolved tiers (its training field query's config)."""
+    from emap_tpu_torch.render.renderer import field_config
+
+    field = field_config(runner.rcfg, runner.ucfg)
+    return {k: f"{k}/{tier_name(k, field)}"
+            for k in ("mlp_value_and_grad", "mlp_train_bwd")}
+
+
 def copied_state(runner, rcfg=None):
     """A new TrainState equal to the runner's, its generator's state
     included (through the host, as a checkpoint would)."""
@@ -589,7 +807,7 @@ def graph_phase(runner, smi: str, eager_host_calls: float) -> None:
               f"{chained.replayed_launches}", flush=True)
         check(not leaves and not bad_rows, f"{kind}: graph replays differ "
               f"from eager steps in {leaves} and metric columns {bad_rows}")
-        check(chained.replayed_launches["mlp_train_bwd"]
+        check(chained.replayed_launches[train_keys(runner)["mlp_train_bwd"]]
               == 2 * GRAPH_CHAIN - 1, "the replays' launches are not "
               "reckoned")
         if kind == "classical":
@@ -751,6 +969,70 @@ def mask_disagreement(params, ucfg, res: int, thresholds) -> None:
     torch.cuda.empty_cache()
 
 
+def extraction_launches(runner, ucfg, n_jitter: int, wall: float,
+                        smi: str) -> int:
+    """Phase 6's and 9's reckoning of an extraction's launches at ucfg's
+    tier from its trace: one value launch per grid chunk and per probe
+    certification; per feature batch of m live candidates one
+    value-and-gradient launch, plus one per SLICE_CAP of its m * sampling_N
+    line-direction samples (padded to the tile). Checks the kernels' runs
+    since zero_counts() against it, no launch at another tier and none of
+    the backward; prints the stages. Returns the points of the largest
+    line-direction call."""
+    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK, POINT_BATCH
+    from emap_tpu_torch.kernels import mlp_query
+
+    trace = runner.extract_trace
+    launches = ran()
+    value_key = f"mlp_value/{tier_name('mlp_value', ucfg)}"
+    vg_key = f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"
+
+    def linedir_points(m):
+        return mlp_query.round_up(m * n_jitter, mlp_query.POINT_TILE)
+
+    def sweep_launches(t):
+        sizes = [min(POINT_BATCH, t["points"] - s)
+                 for s in range(0, t["points"], POINT_BATCH)]
+        return sum(1 + (-(-linedir_points(m) // mlp_query.SLICE_CAP)
+                        if t["linedir"] else 0) for m in sizes)
+
+    want_value = sum(-(-t["points"] // GRID_CHUNK) for t in trace
+                     if t["stage"] == "grid") + sum(
+        1 for t in trace if t["stage"] == "certify")
+    sweeps = [t for t in trace if t["stage"] == "sweep"]
+    want_vg = sum(sweep_launches(t) for t in sweeps)
+    stages = {}
+    for t in trace:
+        stages.setdefault(t["stage"], []).append(t)
+    for name in ("grid", "sweep", "certify", "pointcloud", "probe", "fit",
+                 "fit_score"):
+        ts = stages.get(name, [])
+        print(f"extract: stage {name}: {len(ts)} x, "
+              f"{sum(t['seconds'] for t in ts):.3f} s "
+              f"{[round(t['seconds'], 3) for t in ts]}"
+              + (f", points {[t['points'] for t in ts]}"
+                 if ts and "points" in ts[0] else ""), flush=True)
+    fit_s = sum(t["seconds"] for t in stages.get("fit", []))
+    print(f"extract: host fits {fit_s:.1f} s, selector scoring "
+          f"{sum(t['seconds'] for t in stages['fit_score']) - fit_s:.1f} s",
+          flush=True)
+    print(f"extract: {wall:.1f} s through emap_tpu_torch.cli (set-up "
+          f"included) on {smi}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, reckoned "
+          f"{value_key} {want_value}, {vg_key} {want_vg}", flush=True)
+    check(launches[value_key] == want_value > 0,
+          f"{value_key} launched {launches[value_key]} times, reckoned "
+          f"{want_value}")
+    check(launches[vg_key] == want_vg > 0,
+          f"{vg_key} launched {launches[vg_key]} times, reckoned {want_vg}")
+    others = {k: v for k, v in launches.items()
+              if v and k not in (value_key, vg_key)}
+    check(not others, f"the extraction launched other kernels or tiers: "
+          f"{others}")
+    return max(linedir_points(min(POINT_BATCH, t["points"]))
+               for t in sweeps if t["linedir"])
+
+
 def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     """Phase 6: `--mode extract_edge` with the ABC conf's edge_extraction
     block on the regressed cube field; the launches against a reckoning
@@ -765,8 +1047,6 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     from emap_tpu_torch.ckpt.native import save_pytree
     from emap_tpu_torch.data.synthetic import cube_edges
     from emap_tpu_torch.extract import pointcloud
-    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK, POINT_BATCH
-    from emap_tpu_torch.kernels import mlp_query, mlp_train
     from emap_tpu_torch.train.runner import Runner
     from emap_tpu_torch.utils.ply import read_ply_points
 
@@ -816,9 +1096,7 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rises["held before the extraction"] = torch.cuda.memory_allocated()
-    mlp_query.value.launches = 0
-    mlp_query.value_and_grad.launches = 0
-    mlp_train.train_bwd.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     try:
         runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"])
@@ -827,11 +1105,9 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
         pointcloud.grid_masks, pointcloud._run_point_batches = grid, batches
         torch.linalg.eigh = eigh
     wall = time.perf_counter() - t0
-    launches = {"mlp_value": mlp_query.value.launches,
-                "mlp_value_and_grad_sliced":
-                    mlp_query.value_and_grad.launches}
+    launches = ran()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(mlp_train.train_bwd.launches == 0, "extraction ran the backward")
+    print(f"extract: peak device memory {peak:.2f} GiB", flush=True)
     rises["elsewhere"] = peak * 2 ** 30 - sum(rises.values())
     print("extract: peak device memory by what raised it, GiB: "
           + ", ".join(f"{k} {v / 2 ** 30:.3f}" for k, v in rises.items()),
@@ -851,54 +1127,9 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
           flush=True)
     del a, gram
 
-    # the reckoning: one value launch per grid chunk and per probe
-    # certification; per feature batch of m live candidates one
-    # value-and-gradient launch, plus one per SLICE_CAP of its m * sampling_N
-    # line-direction samples (padded to the tile)
-    trace = runner.extract_trace
-
-    def linedir_points(m):
-        return mlp_query.round_up(m * n_jitter, mlp_query.POINT_TILE)
-
-    def sweep_launches(t):
-        sizes = [min(POINT_BATCH, t["points"] - s)
-                 for s in range(0, t["points"], POINT_BATCH)]
-        return sum(1 + (-(-linedir_points(m) // mlp_query.SLICE_CAP)
-                        if t["linedir"] else 0) for m in sizes)
-
-    want_value = sum(-(-t["points"] // GRID_CHUNK) for t in trace
-                     if t["stage"] == "grid") + sum(
-        1 for t in trace if t["stage"] == "certify")
-    sweeps = [t for t in trace if t["stage"] == "sweep"]
-    want_vg = sum(sweep_launches(t) for t in sweeps)
-    linedir_n = max(linedir_points(min(POINT_BATCH, t["points"]))
-                    for t in sweeps if t["linedir"])
-    stages = {}
-    for t in trace:
-        stages.setdefault(t["stage"], []).append(t)
-    for name in ("grid", "sweep", "certify", "pointcloud", "probe", "fit",
-                 "fit_score"):
-        ts = stages.get(name, [])
-        print(f"extract: stage {name}: {len(ts)} x, "
-              f"{sum(t['seconds'] for t in ts):.3f} s "
-              f"{[round(t['seconds'], 3) for t in ts]}"
-              + (f", points {[t['points'] for t in ts]}"
-                 if ts and "points" in ts[0] else ""), flush=True)
-    fit_s = sum(t["seconds"] for t in stages.get("fit", []))
-    print(f"extract: host fits {fit_s:.1f} s, selector scoring "
-          f"{sum(t['seconds'] for t in stages['fit_score']) - fit_s:.1f} s",
-          flush=True)
-    print(f"extract: {wall:.1f} s through emap_tpu_torch.cli (set-up "
-          f"included) on {smi}; peak device memory {peak:.2f} GiB; launches "
-          f"{launches}, reckoned mlp_value {want_value}, "
-          f"mlp_value_and_grad_sliced {want_vg}", flush=True)
-    check(launches["mlp_value"] == want_value > 0,
-          f"mlp_value launched {launches['mlp_value']} times, reckoned "
-          f"{want_value}")
-    check(launches["mlp_value_and_grad_sliced"] == want_vg > 0,
-          f"the sliced value-and-gradient launched "
-          f"{launches['mlp_value_and_grad_sliced']} times, reckoned {want_vg}")
-    row_of["mlp_value"]["launches"] = launches["mlp_value"]
+    linedir_n = extraction_launches(runner, ucfg, n_jitter, wall, smi)
+    row_of[f"mlp_value/{tier_name('mlp_value', ucfg)}"]["launches"] = (
+        launches[f"mlp_value/{tier_name('mlp_value', ucfg)}"])
 
     results = os.path.join(runner.base_exp_dir, "results")
     for fn in ("udf_pointcloud_withdirection.ply", "edge_points.ply",
@@ -925,7 +1156,8 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     check(median < EDGE_MEDIAN_MAX, f"edge points lie {median:.5f} from the "
           f"cube's edges (median), over one voxel")
     row = sliced_row(ucfg, linedir_n)
-    row["launches"] = launches["mlp_value_and_grad_sliced"]
+    row["launches"] = launches[
+        f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"]
     check(len(grams) == 1, "the extraction solved no line directions")
     eigen_signs(grams[0])
     return row
@@ -976,6 +1208,119 @@ def score_phase(conf_path: str, smi: str) -> None:
           f"under {F20_MIN}")
 
 
+def route_conf(conf_path: str, tmp: str, name: str, pins: dict,
+               extract: bool = False) -> str:
+    """A copy of the smoke conf with the keys `pins` set: training
+    ROUTE_ITER steps (one chained call, no validation) in an experiment
+    directory of its own; or, with `extract`, in the smoke run's, whose
+    checkpoint (phase 6's field) it extracts at the conf's udf_threshold
+    with one fit."""
+    from emap_tpu_torch import config
+
+    conf = config.parse_file(conf_path)
+    for k, v in pins.items():
+        conf[k] = v
+    if extract:
+        conf["edge_extraction.auto_threshold"] = []
+        conf["edge_extraction.fit_draws"] = 1
+    else:
+        conf["general.base_exp_dir"] = os.path.join(tmp, f"route_{name}")
+        for k in ("end_iter", "report_freq", "save_freq"):
+            conf[f"train.{k}"] = ROUTE_ITER
+        conf["train.val_freq"] = 100 * ROUTE_ITER
+    path = os.path.join(tmp, f"route_{name}.conf")
+    with open(path, "w") as f:
+        f.write(conf.to_hocon())
+    return path
+
+
+# Phase 9's training routes: the pinned keys, the route and the kernel
+# tiers (launch-count keys) each must take.
+TRAIN_ROUTES = (
+    ("precision_highest", {"model.udf_network.precision": "highest"},
+     "autograd", ()),
+    ("field_high", {"model.udf_renderer.field_precision": "high"}, "kernels",
+     ("mlp_value_and_grad/3xtf32", "mlp_train_bwd/3xtf32")),
+    ("field_high_bwd_default", {"model.udf_renderer.field_precision": "high",
+                                "model.udf_network.bwd_precision": "default"},
+     "kernels", ("mlp_value_and_grad/3xtf32", "mlp_train_bwd/3xtf32+bf16")),
+)
+
+
+def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
+                sweep_n: int) -> dict:
+    """Phase 9: the routes the tier keys select, each through the CLI with
+    the counts set to 0 before it and read after it; the kernel rows of
+    tiers off the main path take their launches from these runs. Returns
+    the sliced value-and-gradient query's row at the bf16 tier, held and
+    timed at sweep_n points, phase 6's line-direction call (this run's own,
+    at one threshold, is smaller)."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch import cli
+    from emap_tpu_torch.data.synthetic import cube_edges
+    from emap_tpu_torch.utils.ply import read_ply_points
+
+    for name, pins, route, keys in TRAIN_ROUTES:
+        path = route_conf(conf_path, tmp, name, pins)
+        zero_counts()
+        t0 = time.perf_counter()
+        runner = cli.main(["--conf", path, "--mode", "train"])
+        torch.cuda.synchronize()
+        launches = ran(runner)
+        got = {k: v for k, v in launches.items() if v}
+        losses = [h["loss"] for h in runner.history]
+        print(f"route {name} ({pins}): tiers {runner.tiers}; "
+              f"{runner.state.step} steps in {time.perf_counter() - t0:.1f} "
+              f"s, losses {[round(x, 5) for x in losses]}; kernel runs "
+              f"{got or 'none'}", flush=True)
+        check(runner.tiers["route"] == route, f"{name} took the "
+              f"{runner.tiers['route']} route, not {route}")
+        check(runner.state.step == ROUTE_ITER and len(losses) == ROUTE_ITER
+              and all(map(math.isfinite, losses)),
+              f"{name}: non-finite or missing losses {losses}")
+        check(got == {k: ROUTE_ITER for k in keys},
+              f"{name} ran {got}, not {keys} once a step")
+        for k in keys:
+            row_of[k]["launches"] = row_of[k]["launches"] or launches[k]
+        del runner
+        torch.cuda.empty_cache()
+
+    pins = {"model.udf_network.precision": "default"}
+    path = route_conf(conf_path, tmp, "extract_default", pins, extract=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = cli.main(["--conf", path, "--mode", "extract_edge"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran()
+    print(f"route extract_default ({pins}): tiers {runner.tiers}", flush=True)
+    check(runner.tiers["extraction"] == "default", "the extraction does not "
+          "run at the pinned tier")
+    ucfg = runner.ucfg
+    linedir_n = extraction_launches(
+        runner, ucfg, runner.conf.get_int("edge_extraction.sampling_N"), wall,
+        smi)
+    print(f"route extract_default: largest line-direction call {linedir_n} "
+          f"points", flush=True)
+    row_of["mlp_value/bf16"]["launches"] = launches["mlp_value/bf16"]
+    results = os.path.join(runner.base_exp_dir, "results")
+    edge_pts, _ = read_ply_points(os.path.join(results, "edge_points.ply"))
+    check(len(edge_pts) > 0 and bool(np.isfinite(edge_pts).all()),
+          f"route extract_default: {len(edge_pts)} edge points, or "
+          f"non-finite ones")
+    dist = cube_edge_distance(
+        torch.as_tensor(edge_pts, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(cube_edges(0.5), dtype=torch.float32, device="cuda"))
+    print(f"route extract_default: {len(edge_pts)} edge points, to the "
+          f"cube's edges: median {float(dist.median()):.5f}, 90th percentile "
+          f"{float(dist.quantile(0.9)):.5f}", flush=True)
+    row = sliced_row(ucfg, sweep_n)
+    row["launches"] = launches["mlp_value_and_grad/bf16"]
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -990,7 +1335,7 @@ def main() -> int:
                         format="[%(filename)s:%(lineno)s] %(message)s")
     from emap_tpu_torch import cli, config, use_fp32_matmuls
     from emap_tpu_torch.fields.udf import UDFConfig
-    from emap_tpu_torch.kernels import build, mlp_query, mlp_train
+    from emap_tpu_torch.kernels import build
     from emap_tpu_torch.render.renderer import RenderConfig
 
     use_fp32_matmuls()
@@ -1024,23 +1369,20 @@ def main() -> int:
         print(f"scene + conf written in {time.perf_counter() - t0:.1f} s",
               flush=True)
         torch.cuda.reset_peak_memory_stats()
-        mlp_query.value_and_grad.launches = 0
-        mlp_train.train_bwd.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         runner = cli.main(["--conf", conf_path, "--mode", "train"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counted = {"mlp_value_and_grad": mlp_query.value_and_grad.launches,
-                   "mlp_train_bwd": mlp_train.train_bwd.launches}
+        counted = {k: v for k, v in ran().items() if v}
         # the steps ran as CUDA graph replays: a kernel ran its wrapper's
         # count, less the launches its capture counted without running
         # them, plus those the replays ran without counting
-        launches = {k: v - runner.captured_launches.get(k, 0)
-                    + runner.replayed_launches.get(k, 0)
-                    for k, v in counted.items()}
+        launches = ran(runner)
+        keys = train_keys(runner)
         row_of = {row["name"]: row for row in rows}
-        for name, count in launches.items():
-            row_of[name]["launches"] = count
+        for key in keys.values():
+            row_of[key]["launches"] = launches[key]
         # the one validation renders the view in batch_size-ray chunks, one
         # forward launch each
         h, w = (runner.scene.H // runner.validate_resolution_level,
@@ -1048,22 +1390,32 @@ def main() -> int:
         val_chunks = -(-h * w // runner.batch_size)
         print(f"train: {END_ITER} steps and one validation through "
               f"emap_tpu_torch.cli in {wall:.1f} s (set-up and first step "
-              f"included); wrapper counts {counted}, of them captured "
-              f"{runner.captured_launches}; replays ran "
-              f"{runner.replayed_launches}; launches {launches}, "
+              f"included) at the tiers {runner.tiers}; wrapper counts "
+              f"{counted}, of them captured "
+              f"{ {k: v for k, v in runner.captured_launches.items() if v} }; "
+              f"replays ran "
+              f"{ {k: v for k, v in runner.replayed_launches.items() if v} }; "
+              f"launches { {k: v for k, v in launches.items() if v} }, "
               f"{val_chunks} of them validation chunks", flush=True)
-        check(all(counted.values()) and runner.replayed_launches.get(
-            "mlp_train_bwd", 0) > 0, "the CLI run did not go through the "
-              "kernels and the graph")
+        check(runner.tiers == {"field": "default", "adjoint": "default",
+                               "sampler": "default", "extraction": "high",
+                               "route": "kernels"},
+              f"the ABC conf resolved to the tiers {runner.tiers}")
+        check(runner.replayed_launches.get(keys["mlp_train_bwd"], 0) > 0,
+              "the CLI run did not go through the kernels and the graph")
         check(runner.state.step == END_ITER, f"trained to step "
               f"{runner.state.step}, not {END_ITER}")
-        check(launches["mlp_train_bwd"] == END_ITER, "mlp_train_bwd "
-              f"launched {launches['mlp_train_bwd']} times in {END_ITER} "
-              "steps")
-        check(launches["mlp_value_and_grad"] == END_ITER + val_chunks,
-              f"mlp_value_and_grad launched "
-              f"{launches['mlp_value_and_grad']} times, not {END_ITER} "
+        check(launches[keys["mlp_train_bwd"]] == END_ITER,
+              f"{keys['mlp_train_bwd']} launched "
+              f"{launches[keys['mlp_train_bwd']]} times in {END_ITER} steps")
+        check(launches[keys["mlp_value_and_grad"]] == END_ITER + val_chunks,
+              f"{keys['mlp_value_and_grad']} launched "
+              f"{launches[keys['mlp_value_and_grad']]} times, not {END_ITER} "
               f"steps + {val_chunks} validation chunks")
+        others = {k: v for k, v in launches.items()
+                  if v and k not in keys.values()}
+        check(not others, f"the training launched other kernels or tiers: "
+              f"{others}")
         validation_check(runner, h, w, smi)
         losses = [h["loss"] for h in runner.history]
         check(len(losses) == END_ITER and all(map(math.isfinite, losses)),
@@ -1088,7 +1440,10 @@ def main() -> int:
         graph_phase(runner, smi, eager_host_calls)
         rows.append(extract_phase(conf_path, ucfg, row_of, smi))
         score_phase(conf_path, smi)
+        rows.append(route_phase(conf_path, tmp, row_of, smi, rows[-1]["n"]))
 
+    idle = [row["name"] for row in rows if not row["launches"]]
+    check(not idle, f"no path launched {idle}")
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

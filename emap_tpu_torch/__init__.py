@@ -3,13 +3,28 @@
 The layout mirrors `emap_tpu/` module for module. The port imports torch,
 numpy and the standard library only; it never imports jax or emap_tpu.
 
-Precision: every path of this package computes at float32 accuracy. The
-field query's CUDA kernels (training, extraction sweeps and grid) multiply
-on the tensor cores with a 3xTF32 split (csrc/mlp_mma.cuh), and torch
-matmuls run in full float32 with TF32 off (`use_fp32_matmuls`, called by
-the runner and `chip_smoke.py`). The
-conf keys `precision`, `field_precision`, `sampler_precision` and
-`bwd_precision` are parsed but do not yet select a tier.
+Precision: the conf keys select the JAX package's matmul tiers
+(fields/udf.py::TIERS) at the sites it reads them:
+- `model.udf_renderer.field_precision` (default "default"): the training
+  field query, kernels #1a and #2, and the validation render; "" keeps the
+  model tier. A conf that pins `model.udf_network.precision` and not this
+  key trains at the pinned tier (train/runner.py).
+- `model.udf_network.bwd_precision` (default ""): #2's adjoint products;
+  "" inherits the field tier.
+- `model.udf_renderer.sampler_precision` (default "default"): the
+  up-sampler's field queries (torch matmuls).
+- `model.udf_network.precision` (default "high"): extraction, kernels #1b
+  and #3.
+"default" is one bf16 pass (operands rounded to bf16, fp32 products, sums
+and results: mma.sync bf16 in the kernels, a TF32 matmul of bf16-rounded
+operands elsewhere); "high" and "highest" are fp32 (3xTF32 in the kernels,
+fp32 matmuls elsewhere). "highest" on the field also routes the training
+query through plain autograd instead of the kernels, as the JAX package
+routes it through XLA autodiff (`pallas_train = "on"` keeps the kernels).
+The fp32 path throughout: pin `precision = "high"` in udf_network (the
+field follows it) and `sampler_precision = "high"` in udf_renderer.
+Outside those sites torch matmuls run in full float32 with TF32 off
+(`use_fp32_matmuls`, called by the runner and `chip_smoke.py`).
 """
 
 import torch

@@ -1,8 +1,19 @@
 // Tensor-core tile products of the fused field queries (mlp_query.cu,
-// mlp_train.cu, mlp_value.cu): mma.sync m16n8k8 TF32 with a 3xTF32 split,
-// fp32-accurate.
+// mlp_train.cu, mlp_value.cu), at two tiers (Tier): mma.sync m16n8k8 TF32
+// with a 3xTF32 split, fp32-accurate, or one mma.sync m16n8k16 bf16 pass.
 //
-// Numbers: each operand x is split into hi = rna(x) and lo = rna(x - hi),
+// The tiers are the JAX package's matmul tiers as its kernels' _kernel_dot
+// (emap_tpu/kernels/mlp_query.py:249-278) takes them, by conf name
+// (kernels/mlp_query.py: kernel_tier): "default" is BF16, one pass with
+// both operands rounded to bf16 by cvt.rn.bf16x2.f32 (to nearest, ties to
+// even, as XLA's astype) and fp32 accumulators; "high" and "highest" are
+// TF32X3, fp32 accuracy (the JAX package's "high", a 3-pass bf16 emulation
+// of fp32, is a TPU workaround). The BF16 tier does 1/6 of the TF32X3
+// tier's mma instructions, each twice as deep, with no operand split: 989
+// TFLOP/s dense bf16 on the H100 SXM against 495 / 3 for fp32-accurate
+// TF32.
+//
+// TF32X3 numbers: each operand x is split into hi = rna(x) and lo = rna(x - hi),
 // rna the rounding of cvt.rna.tf32.f32 (10 mantissa bits, ties away from
 // zero), and a product is lo*hi + hi*lo + hi*hi on the tensor cores with
 // fp32 accumulation; the lo*lo term lies below fp32 roundoff. A product of
@@ -12,8 +23,9 @@
 // TF32 on the H100 SXM, ~165 TFLOP/s fp32-accurate, against 67 TFLOP/s of
 // fp32 FMA). The tensor cores add into their fp32 accumulator truncating,
 // not rounding, so a long chain of mma drifts toward zero: every 32
-// contraction steps are summed in a fresh accumulator and added to the
-// running sum with a rounded fp32 add. Over the 14,592 terms of a
+// contraction steps (4 k8 steps of TF32X3, 2 k16 steps of BF16) are summed
+// in a fresh accumulator and added to the running sum with a rounded fp32
+// add, at both tiers. Over the 14,592 terms of a
 // weight-gradient point range one chain leaves the worst block ~1e-4 off
 // its plain version on the H100, the promoted sums under 1e-5
 // (scripts/torch_kernel_ablation.py, no_promotion).
@@ -28,12 +40,15 @@
 // transpose. W streams from L2 in chunks of KC = 32 contraction steps
 // through a ring of NSLOT cp.async slots in shared memory, fp32, NSLOT - 1
 // chunks ahead of the warps, with one block barrier a chunk; each warp
-// splits its fragments as it reads them.
+// splits (TF32X3) or rounds (BF16) its fragments as it reads them.
 #pragma once
 
 #include "mlp_common.cuh"
 
 namespace emap {
+
+// The tier of a tile product; the C interfaces take its code.
+enum Tier : int { TF32X3 = 0, BF16 = 1 };
 
 constexpr int SA = P + 8;          // tile row stride, floats
 constexpr int KC = 32;             // contraction steps per W chunk
@@ -111,6 +126,36 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// lo and hi rounded to bf16 (to nearest, ties to even), packed with lo in
+// the low half: the element of the smaller index in an mma.sync fragment.
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x as a tier's products take it: rounded to bf16 (cvt.rn.bf16.f32) at
+// BF16, unchanged at TF32X3. Used by the one-row head layer's fp32 FMA,
+// where a product of two bf16 values is exact.
+template <Tier T>
+__device__ __forceinline__ float tier_operand(float x) {
+  if constexpr (T == BF16) {
+    unsigned short h;
+    asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(x));
+    return __uint_as_float((unsigned)h << 16);
+  } else {
+    return x;
+  }
+}
+
 // 16 bytes global -> shared, zero-filled when !valid (src is then unread).
 __device__ __forceinline__ void cp16(float* dst, const float* src,
                                      bool valid) {
@@ -145,43 +190,73 @@ __device__ __forceinline__ void add_acc(Acc& acc, const Acc& part) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
 }
 
-// acc += A X over one KD-deep chunk, 3xTF32. a_at(m, kk, hi, lo) and
-// b_at(kk, n, hi, lo) give the split operands of the chunk (kk < KD); rows
+// acc += A X over one KD-deep chunk at tier T. a_at(m, kk) and b_at(kk, n)
+// give the chunk's fp32 operands (kk < KD), which the warp splits (TF32X3,
+// 8 steps a pass) or rounds (BF16, 16 steps a pass) as it reads them; rows
 // m >= M are skipped by 16-row tiles.
-template <int KD, class AAt, class BAt>
+template <Tier T, int KD, class AAt, class BAt>
 __device__ __forceinline__ void mma_chunk(Acc& acc, const Frag& f, int M,
                                           AAt a_at, BAt b_at) {
   if (f.wm * 64 >= M) return;  // warp-uniform
+  if constexpr (T == TF32X3) {
 #pragma unroll
-  for (int ks = 0; ks < KD; ks += 8) {
-    unsigned bh[4][2], bl[4][2];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = f.wn * 32 + nt * 8 + f.gid;
-      b_at(ks + f.tig, n, bh[nt][0], bl[nt][0]);
-      b_at(ks + f.tig + 4, n, bh[nt][1], bl[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (f.wm * 64 + mt * 16 >= M) continue;  // warp-uniform
-      const int m = f.wm * 64 + mt * 16 + f.gid;
-      unsigned ah[4], al[4];
-      a_at(m, ks + f.tig, ah[0], al[0]);
-      a_at(m + 8, ks + f.tig, ah[1], al[1]);
-      a_at(m, ks + f.tig + 4, ah[2], al[2]);
-      a_at(m + 8, ks + f.tig + 4, ah[3], al[3]);
+    for (int ks = 0; ks < KD; ks += 8) {
+      unsigned bh[4][2], bl[4][2];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        mma_tf32(acc[mt][nt], al, bh[nt]);
-        mma_tf32(acc[mt][nt], ah, bl[nt]);
-        mma_tf32(acc[mt][nt], ah, bh[nt]);
+        const int n = f.wn * 32 + nt * 8 + f.gid;
+        split3(b_at(ks + f.tig, n), bh[nt][0], bl[nt][0]);
+        split3(b_at(ks + f.tig + 4, n), bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (f.wm * 64 + mt * 16 >= M) continue;  // warp-uniform
+        const int m = f.wm * 64 + mt * 16 + f.gid;
+        unsigned ah[4], al[4];
+        split3(a_at(m, ks + f.tig), ah[0], al[0]);
+        split3(a_at(m + 8, ks + f.tig), ah[1], al[1]);
+        split3(a_at(m, ks + f.tig + 4), ah[2], al[2]);
+        split3(a_at(m + 8, ks + f.tig + 4), ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_tf32(acc[mt][nt], al, bh[nt]);
+          mma_tf32(acc[mt][nt], ah, bl[nt]);
+          mma_tf32(acc[mt][nt], ah, bh[nt]);
+        }
+      }
+    }
+  } else {
+    static_assert(KD % 16 == 0, "a BF16 chunk is whole k16 steps");
+    // m16n8k16 fragments: A's four registers hold (row, k) pairs (m, k),
+    // (m + 8, k), (m, k + 8), (m + 8, k + 8) with k = ks + 2 tig and its
+    // neighbour k + 1; B's two hold (k, n) and (k + 8, n), also with k + 1
+#pragma unroll
+    for (int ks = 0; ks < KD; ks += 16) {
+      const int k = ks + 2 * f.tig;
+      unsigned b[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = f.wn * 32 + nt * 8 + f.gid;
+        b[nt][0] = bf16x2(b_at(k, n), b_at(k + 1, n));
+        b[nt][1] = bf16x2(b_at(k + 8, n), b_at(k + 9, n));
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (f.wm * 64 + mt * 16 >= M) continue;  // warp-uniform
+        const int m = f.wm * 64 + mt * 16 + f.gid;
+        const unsigned a[4] = {bf16x2(a_at(m, k), a_at(m, k + 1)),
+                               bf16x2(a_at(m + 8, k), a_at(m + 8, k + 1)),
+                               bf16x2(a_at(m, k + 8), a_at(m, k + 9)),
+                               bf16x2(a_at(m + 8, k + 8), a_at(m + 8, k + 9))};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
       }
     }
   }
 }
 
-// acc(m, p) = sum_{k < K} A(m, k) xs(k, p) for m < M <= WMAX and the
-// tile's P points, with A(m, k) = W[m * ldw + k] (TRANS false: a layer's
+// acc(m, p) = sum_{k < K} A(m, k) xs(k, p) at tier T for m < M <= WMAX and
+// the tile's P points, with A(m, k) = W[m * ldw + k] (TRANS false: a layer's
 // block, K = in_l, M = out_l) or W[k * ldw + m] (TRANS true: its
 // transpose, K = out_l, M = in_l). xs is the tile in shared memory,
 // stride SA, with at least roundup(K, KC) finite rows. ring holds RING
@@ -189,7 +264,7 @@ __device__ __forceinline__ void mma_chunk(Acc& acc, const Frag& f, int M,
 // at and above K add nothing. Every thread of the block calls it; it
 // synchronises the block, and on return every warp has finished reading xs
 // and ring.
-template <bool TRANS>
+template <Tier T, bool TRANS>
 __device__ __forceinline__ void tc_product(const float* __restrict__ W,
                                            int ldw, int M, int K,
                                            const float* xs, float* ring,
@@ -235,14 +310,9 @@ __device__ __forceinline__ void tc_product(const float* __restrict__ W,
     const float* xk = xs + (size_t)c * KC * SA;
     Acc part;
     zero_acc(part);
-    mma_chunk<KC>(
-        part, f, M,
-        [&](int m, int kk, unsigned& h, unsigned& l) {
-          split3(cur[at(m, kk)], h, l);
-        },
-        [&](int kk, int p, unsigned& h, unsigned& l) {
-          split3(xk[kk * SA + p], h, l);
-        });
+    mma_chunk<T, KC>(
+        part, f, M, [&](int m, int kk) { return cur[at(m, kk)]; },
+        [&](int kk, int p) { return xk[kk * SA + p]; });
     add_acc(acc, part);
   }
   __syncthreads();
@@ -301,14 +371,17 @@ __device__ __forceinline__ void store2(float* a, size_t ld, size_t n0, int m,
 }
 
 // The one-row head layer, forward: out[p] = sum_{k < K} w[k] xs(k, p) in
-// fp32 FMA, four partial sums a point added in a fixed order. red holds
-// 4 * P floats; out (P floats, shared) may alias red's first row. Syncs.
+// fp32 FMA with tier T's operands, four partial sums a point added in a
+// fixed order. red holds 4 * P floats; out (P floats, shared) may alias
+// red's first row. Syncs.
+template <Tier T>
 __device__ __forceinline__ void head_dot(const float* __restrict__ w, int K,
                                          const float* xs, float* red,
                                          float* out) {
   const int p = threadIdx.x % P, part = threadIdx.x / P;  // NT = 4 P
   float s = 0.f;
-  for (int k = part; k < K; k += NT / P) s = fmaf(w[k], xs[k * SA + p], s);
+  for (int k = part; k < K; k += NT / P)
+    s = fmaf(tier_operand<T>(w[k]), tier_operand<T>(xs[k * SA + p]), s);
   red[part * P + p] = s;
   __syncthreads();
   float v = 0.f;
@@ -319,8 +392,10 @@ __device__ __forceinline__ void head_dot(const float* __restrict__ w, int K,
   __syncthreads();
 }
 
-// The one-row head layer, transposed: acc(m, p) = w[m] v[p] for m < M, in
-// the per-point fragment layout (so the epilogues of tc_product serve it).
+// The one-row head layer, transposed: acc(m, p) = w[m] v[p] for m < M with
+// tier T's operands, in the per-point fragment layout (so the epilogues of
+// tc_product serve it).
+template <Tier T>
 __device__ __forceinline__ void head_outer(const float* __restrict__ w, int M,
                                            const float* v, Acc& acc) {
   const Frag f = frag_points();
@@ -331,7 +406,9 @@ __device__ __forceinline__ void head_outer(const float* __restrict__ w, int M,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = frag_m(f, mt, e);
-        acc[mt][nt][e] = m < M ? w[m] * v[frag_p(f, nt, e)] : 0.f;
+        acc[mt][nt][e] = m < M ? tier_operand<T>(w[m]) *
+                                     tier_operand<T>(v[frag_p(f, nt, e)])
+                               : 0.f;
       }
 }
 

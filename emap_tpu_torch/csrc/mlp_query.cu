@@ -4,7 +4,8 @@
 // its uses: with fuse_pe=True, f32_residuals=True as the forward of the
 // training query (emap_tpu/kernels/mlp_train.py::_train_query), and as the
 // extraction query of pallas_udf_value_and_grad (PE outside, bf16 residuals
-// on the "high" tier there: only to fit VMEM; in fp32 the same function).
+// on the "high" and "default" tiers there: only to fit VMEM; the residuals
+// here are fp32 at both tiers).
 // The extraction's calls reach 3,276,800 points, so the wrapper
 // (kernels/mlp_query.py::value_and_grad_sliced) launches over slices of at
 // most SLICE_CAP points and the scratch stays bounded.
@@ -13,19 +14,23 @@
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), the abs/square/sdf
 // head, then the hand-derived reverse pass for d udf / d x through the
 // layers (sigmoid(100 z) residuals) and the PE Jacobian. Out: udf (ld,),
-// grad (8, ld) with rows 0-2 live.
+// grad (8, ld) with rows 0-2 live. Every product, forward and reverse, at
+// one tier (mlp_mma.cuh: Tier), as the Pallas kernel runs them all at
+// cfg.precision.
 //
 // Bound on the H100: operations. 4 * sum(in_l * out_l) FLOP a point
 // (1.84 MFLOP at ABC width) against 68 bytes of input and output a point:
 // at the step's 116,736 points >= 3.2 ms at the fp32 FMA peak (67 TFLOP/s)
-// and >= 1.3 ms for the three TF32 passes at the tensor-core peak. What
-// holds it above that is the work around the mma: the operand splits,
-// the block barriers of one 8-warp block per SM, and the softplus/sigmoid
-// epilogues, not the tensor cores.
+// and >= 1.3 ms for the three TF32 passes at the tensor-core peak; the BF16
+// tier's one pass >= 0.22 ms at 989 TFLOP/s. What holds it above that is
+// the work around the mma: the operand splits, the block barriers of one
+// 8-warp block per SM, and the softplus/sigmoid epilogues, not the tensor
+// cores.
 // Design (mlp_mma.cuh): one block of 8 warps walks a 64-point tile through
 // the 8 hidden linears and back through their transposes (W_l^T g) as
-// 3xTF32 mma.sync tile products; the head's 1-row product is fp32 FMA. The
-// tile's activations and reverse chain stay in shared memory (186 KB at ABC
+// mma.sync tile products at the tier; the head's 1-row product is fp32 FMA
+// (of bf16-rounded operands at BF16). The tile's activations and reverse
+// chain stay in shared memory (186 KB at ABC
 // width: the weight ring, the tile, the encoded input and its gradient),
 // so the only device scratch is the sigmoid residuals, a side array the
 // thread that writes each value reads back: sum_{l<L-1} roundup(out_l, 16)
@@ -52,6 +57,7 @@ long long fwd_carve(const Layout& lay, float* base, size_t ld,
   return row;
 }
 
+template <Tier T>
 __global__ void __launch_bounds__(NT, 1)
     mlp_value_and_grad_kernel(const float* pts, const float* __restrict__ W,
                               const float* __restrict__ B, float* udf,
@@ -83,7 +89,8 @@ __global__ void __launch_bounds__(NT, 1)
   const float* h = X;
   for (int l = 0; l < L - 1; ++l) {
     const int M = lay.out[l];
-    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring, acc);
+    tc_product<T, false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring,
+                         acc);
     const bool skip = lay.skip[l + 1] != 0;
     float* S = s.S[l];
     for_groups(M, [&](int mt, int nt) {
@@ -106,7 +113,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     h = act;
   }
-  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, dyv);
+  head_dot<T>(W + lay.off[L - 1], lay.in[L - 1], act, red, dyv);
   if (threadIdx.x < P) {
     const float y0 = dyv[threadIdx.x] + B[L - 1];
     float u, dy;
@@ -130,10 +137,10 @@ __global__ void __launch_bounds__(NT, 1)
   // rows (skip layer, lin0) add to GIN
   for (int l = L - 1; l >= 0; --l) {
     if (l == L - 1)
-      head_outer(W + lay.off[l], lay.in[l], dyv, acc);
+      head_outer<T>(W + lay.off[l], lay.in[l], dyv, acc);
     else
-      tc_product<true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
-                       ring, acc);
+      tc_product<T, true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
+                          ring, acc);
     const int M = lay.in[l];
     if (l == 0) {
       for_groups(M, [&](int mt, int nt) {
@@ -186,6 +193,20 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+template <Tier T>
+int launch(const float* pts, const float* W, const float* B, float* udf,
+           float* grad, const FwdScratch& s, const Layout& lay, long long n,
+           cudaStream_t stream) {
+  const size_t bytes = tile_smem(lay).floats() * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_value_and_grad_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  mlp_value_and_grad_kernel<T><<<(unsigned)(n / P), NT, bytes, stream>>>(
+      pts, W, B, udf, grad, s, lay, (size_t)n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -200,26 +221,23 @@ long long emap_mlp_value_and_grad_scratch_rows(const int* layout) {
 }
 
 // pts (8, n), W (rmax, ldw), B (rmax, L) -> udf (n,), grad (8, n); all fp32,
-// contiguous, on the device; n a multiple of 64. Returns the CUDA error of
-// the shared-memory opt-in, else cudaGetLastError() after the launch.
+// contiguous, on the device; n a multiple of 64; tier a Tier code. Returns
+// cudaErrorInvalidValue on anything else, the CUDA error of the
+// shared-memory opt-in, else cudaGetLastError() after the launch.
 int emap_mlp_value_and_grad(const float* pts, const float* W, const float* B,
                             float* udf, float* grad, float* scratch,
                             long long n, const int* layout, float scale,
-                            void* stream) {
+                            int tier, void* stream) {
   Layout lay;
   if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
     return (int)cudaErrorInvalidValue;
   FwdScratch s;
   fwd_carve(lay, scratch, (size_t)n, &s);
-  const size_t bytes = tile_smem(lay).floats() * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      mlp_value_and_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  mlp_value_and_grad_kernel<<<(unsigned)(n / P), NT, bytes,
-                              (cudaStream_t)stream>>>(pts, W, B, udf, grad, s,
-                                                      lay, (size_t)n);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tier == TF32X3)
+    return launch<TF32X3>(pts, W, B, udf, grad, s, lay, n, st);
+  if (tier == BF16) return launch<BF16>(pts, W, B, udf, grad, s, lay, n, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

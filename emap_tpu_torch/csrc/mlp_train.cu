@@ -8,6 +8,10 @@
 // reruns the spatial-gradient chain, runs the ascend/descend adjoint chains
 // (equations in emap_tpu/kernels/mlp_train.py:22-36) and sums the packed
 // weight/bias gradients over all points. The points get no cotangent.
+// Two tiers (mlp_mma.cuh: Tier), as _train_bwd_math takes them: the
+// forward recompute and the gradient chain run at the primal tier TP
+// (cfg.precision), the ascend and descend products and both weight-gradient
+// outer products at the adjoint tier TA (bwd_precision or precision).
 //
 // Bound on the H100: operations. 12 * sum(in_l * out_l) - 4 * in_0 * out_0
 // FLOP a point (5.44 MFLOP at ABC width: forward, gradient chain, ascend,
@@ -15,9 +19,10 @@
 // kernels/mlp_train.py::train_bwd_flops) against 68 bytes a point and
 // 2.2 MB of output: at the step's 116,736 points >= 9.5 ms at the fp32 FMA
 // peak (67 TFLOP/s), >= 3.85 ms for three TF32 passes at the tensor-core
-// peak. Every product but the head's 1-row ones (fp32 FMA) runs as 3xTF32
-// mma.sync (mlp_mma.cuh); as in mlp_query.cu, the work around the mma
-// (operand splits, barriers, epilogues) holds it above the bound.
+// peak, >= 0.64 ms for one bf16 pass at 989 TFLOP/s. Every product but the
+// head's 1-row ones (fp32 FMA) runs as mma.sync at its tier (mlp_mma.cuh);
+// as in mlp_query.cu, the work around the mma (operand splits, barriers,
+// epilogues) holds it above the bound.
 // Design: the TPU kernel carries the weight-gradient sum in VMEM from one
 // grid step to the next; blocks on the H100 run in no order, so the work is
 // split in three launches, all deterministic (no atomics, fixed orders):
@@ -77,6 +82,7 @@ long long bwd_carve(const Layout& lay, float* base, size_t ld,
   return row;
 }
 
+template <Tier TP, Tier TA>
 __global__ void __launch_bounds__(NT, 1)
     per_point_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, const float* ubar,
@@ -127,8 +133,8 @@ __global__ void __launch_bounds__(NT, 1)
   Acc acc;
   for (int l = 0; l < L - 1; ++l) {
     const int M = lay.out[l];
-    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : X,
-                      ring, acc);
+    tc_product<TP, false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : X,
+                          ring, acc);
     const bool skip = lay.skip[l + 1] != 0;
     float* S = s.S[l];
     float* U = s.U[l + 1];
@@ -160,7 +166,7 @@ __global__ void __launch_bounds__(NT, 1)
       }
     __syncthreads();
   }
-  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, dyv);
+  head_dot<TP>(W + lay.off[L - 1], lay.in[L - 1], act, red, dyv);
   if (threadIdx.x < P) {
     const float y0 = dyv[threadIdx.x] + B[L - 1];
     float dy;
@@ -176,10 +182,10 @@ __global__ void __launch_bounds__(NT, 1)
   // at a skip), r_{l-1} = carry * s_{l-1}
   for (int l = L - 1; l >= 1; --l) {
     if (l == L - 1)
-      head_outer(W + lay.off[l], lay.in[l], dyv, acc);
+      head_outer<TP>(W + lay.off[l], lay.in[l], dyv, acc);
     else
-      tc_product<true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
-                       ring, acc);
+      tc_product<TP, true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l],
+                           act, ring, acc);
     const bool skip = lay.skip[l] != 0;
     const int c = lay.out[l - 1];  // the non-x rows of q
     const float* S = s.S[l - 1];
@@ -213,8 +219,8 @@ __global__ void __launch_bounds__(NT, 1)
   // gbar appended)
   for (int l = 0; l < L - 1; ++l) {
     const int M = lay.out[l];
-    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : GB,
-                      ring, acc);
+    tc_product<TA, false>(W + lay.off[l], lay.ldw, M, lay.in[l], l ? act : GB,
+                          ring, acc);
     const bool skip = lay.skip[l + 1] != 0;
     const float* S = s.S[l];
     float* SH = s.SH[l];
@@ -250,7 +256,7 @@ __global__ void __launch_bounds__(NT, 1)
       }
     __syncthreads();
   }
-  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, rh);
+  head_dot<TA>(W + lay.off[L - 1], lay.in[L - 1], act, red, rh);
 
   // descend: z_hat_{L-1} = ubar * dy (+ r_hat * 2/scale, square head);
   // a_hat = non-x rows of W_l^T z_hat_l (scaled at a skip);
@@ -265,10 +271,10 @@ __global__ void __launch_bounds__(NT, 1)
   __syncthreads();
   for (int l = L - 1; l >= 1; --l) {
     if (l == L - 1)
-      head_outer(W + lay.off[l], lay.in[l], dyv, acc);
+      head_outer<TA>(W + lay.off[l], lay.in[l], dyv, acc);
     else
-      tc_product<true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l], act,
-                       ring, acc);
+      tc_product<TA, true>(W + lay.off[l], lay.ldw, lay.in[l], lay.out[l],
+                           act, ring, acc);
     const bool skip = lay.skip[l] != 0;
     const int c = lay.out[l - 1];  // the non-x rows of W_l^T z_hat_l
     const float* S = s.S[l - 1];
@@ -308,7 +314,9 @@ struct WTiles {
 
 // Per (tile, point range): wpart[split][o][off_l + i] =
 //   sum_n r_l[o,n] qhat_l[i,n] + zhat_l[o,n] u_l[i,n]
-// and, for the tiles at i0 = 0, bpart[split][o][l] = sum_n zhat_l[o,n].
+// with the products at the adjoint tier TA and, for the tiles at i0 = 0,
+// bpart[split][o][l] = sum_n zhat_l[o,n] in fp32.
+template <Tier TA>
 __global__ void __launch_bounds__(NT, 1)
     wbar_partials_kernel(BwdScratch s, Layout lay, size_t ld, WTiles tiles,
                          size_t chunk, float* wpart, float* bpart) {
@@ -357,14 +365,9 @@ __global__ void __launch_bounds__(NT, 1)
     const float* b = a + BT * SWB;
     Acc part;
     zero_acc(part);
-    mma_chunk<KW>(
-        part, f, out - o0,
-        [&](int m, int kk, unsigned& h, unsigned& lo) {
-          split3(a[m * SWB + kk], h, lo);
-        },
-        [&](int kk, int i, unsigned& h, unsigned& lo) {
-          split3(b[i * SWB + kk], h, lo);
-        });
+    mma_chunk<TA, KW>(
+        part, f, out - o0, [&](int m, int kk) { return a[m * SWB + kk]; },
+        [&](int kk, int i) { return b[i * SWB + kk]; });
     add_acc(acc, part);
     if (bias && c >= nch) {
       const float* row = a + (threadIdx.x >> 1) * SWB + (threadIdx.x & 1) * 16;
@@ -406,49 +409,24 @@ __global__ void reduce_partials_kernel(const float* part, float* out,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Scratch the wrapper allocates: rows (x n floats) of per-point factors and
-// the floats of the weight/bias partials. 0 on success, 1 on a layout the
-// kernels do not take.
-int emap_mlp_train_bwd_sizes(const int* layout, long long* scratch_rows,
-                             long long* partial_floats) {
-  Layout lay;
-  if (parse_tc(layout, 1.f, &lay)) return 1;
-  BwdScratch s;
-  *scratch_rows = bwd_carve(lay, nullptr, 0, &s);
-  *partial_floats = (long long)KS * lay.rmax * (lay.ldw + lay.L);
-  return 0;
-}
-
-// pts (8, n), W (rmax, ldw), B (rmax, L), ubar (n,), gbar (8, n)
-// -> wbar (rmax, ldw), bbar (rmax, L); fp32, contiguous, on the device; n a
-// multiple of 64. Returns the first nonzero CUDA error (shared-memory
-// opt-ins, launches, the partials' memset).
-int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
-                       const float* ubar, const float* gbar, float* wbar,
-                       float* bbar, float* scratch, float* partials,
-                       long long n, const int* layout, float scale,
-                       void* stream) {
-  Layout lay;
-  if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  BwdScratch s;
-  bwd_carve(lay, scratch, (size_t)n, &s);
+// The three launches at tiers (TP, TA); the partials are zeroed between the
+// first two.
+template <Tier TP, Tier TA>
+int launch(const float* pts, const float* W, const float* B,
+           const float* ubar, const float* gbar, float* wbar, float* bbar,
+           const BwdScratch& s, float* partials, const Layout& lay,
+           long long n, cudaStream_t st) {
   const size_t pp_bytes = tile_smem(lay).floats() * sizeof(float);
   const size_t wb_bytes = 2 * 2 * BT * SWB * sizeof(float);
   int err = (int)cudaFuncSetAttribute(
-      per_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      per_point_kernel<TP, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pp_bytes);
   if (!err)
     err = (int)cudaFuncSetAttribute(
-        wbar_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wbar_partials_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)wb_bytes);
   if (err) return err;
-  per_point_kernel<<<(unsigned)(n / P), NT, pp_bytes, st>>>(
+  per_point_kernel<TP, TA><<<(unsigned)(n / P), NT, pp_bytes, st>>>(
       pts, W, B, ubar, gbar, s, lay, (size_t)n);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -468,7 +446,7 @@ int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
         tiles.t[tiles.count++] = WTile{l, o0, i0};
   const size_t chunk =
       ((size_t)(n + KS - 1) / KS + KW - 1) / KW * KW;  // multiple of KW
-  wbar_partials_kernel<<<dim3(tiles.count, KS), NT, wb_bytes, st>>>(
+  wbar_partials_kernel<TA><<<dim3(tiles.count, KS), NT, wb_bytes, st>>>(
       s, lay, (size_t)n, tiles, chunk, wpart, bpart);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -477,6 +455,51 @@ int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
   if (err) return err;
   reduce_partials_kernel<<<8, NT, 0, st>>>(bpart, bbar, bcount);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch the wrapper allocates: rows (x n floats) of per-point factors and
+// the floats of the weight/bias partials. 0 on success, 1 on a layout the
+// kernels do not take.
+int emap_mlp_train_bwd_sizes(const int* layout, long long* scratch_rows,
+                             long long* partial_floats) {
+  Layout lay;
+  if (parse_tc(layout, 1.f, &lay)) return 1;
+  BwdScratch s;
+  *scratch_rows = bwd_carve(lay, nullptr, 0, &s);
+  *partial_floats = (long long)KS * lay.rmax * (lay.ldw + lay.L);
+  return 0;
+}
+
+// pts (8, n), W (rmax, ldw), B (rmax, L), ubar (n,), gbar (8, n)
+// -> wbar (rmax, ldw), bbar (rmax, L); fp32, contiguous, on the device; n a
+// multiple of 64; tier (primal) and adjoint_tier Tier codes. Returns
+// cudaErrorInvalidValue on anything else, else the first nonzero CUDA
+// error (shared-memory opt-ins, launches, the partials' memset).
+int emap_mlp_train_bwd(const float* pts, const float* W, const float* B,
+                       const float* ubar, const float* gbar, float* wbar,
+                       float* bbar, float* scratch, float* partials,
+                       long long n, const int* layout, float scale, int tier,
+                       int adjoint_tier, void* stream) {
+  Layout lay;
+  if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  BwdScratch s;
+  bwd_carve(lay, scratch, (size_t)n, &s);
+#define EMAP_TRAIN_LAUNCH(TP, TA)                                       \
+  if (tier == TP && adjoint_tier == TA)                                 \
+    return launch<TP, TA>(pts, W, B, ubar, gbar, wbar, bbar, s, partials, \
+                          lay, n, st);
+  EMAP_TRAIN_LAUNCH(TF32X3, TF32X3)
+  EMAP_TRAIN_LAUNCH(TF32X3, BF16)
+  EMAP_TRAIN_LAUNCH(BF16, TF32X3)
+  EMAP_TRAIN_LAUNCH(BF16, BF16)
+#undef EMAP_TRAIN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

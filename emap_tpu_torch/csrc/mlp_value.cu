@@ -8,20 +8,22 @@
 // Computes, per point: the in-kernel PE encode, 9 linears with
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), then the
 // abs/square/sdf head divided by scale. No reverse pass, no residuals, no
-// device scratch. Out: udf (ld,).
+// device scratch. Out: udf (ld,). Every product at one tier (mlp_mma.cuh:
+// Tier), as the Pallas kernel runs them at cfg.precision.
 //
 // Bound on the H100: operations. 2 * sum(in_l * out_l) FLOP a point
 // (0.92 MFLOP at ABC width) against 36 bytes of input and output a point;
 // a 128^3 grid pass (2,097,152 points) is 1.93 TFLOP: >= 28.7 ms at the
 // fp32 FMA peak (67 TFLOP/s), >= 3.9 ms for one TF32 pass at the
-// tensor-core peak (495 TFLOP/s) and >= 11.7 ms for the three of the split.
+// tensor-core peak (495 TFLOP/s) and >= 11.7 ms for the three of the split;
+// >= 1.95 ms for the BF16 tier's one pass at 989 TFLOP/s.
 // Design: the forward half of mlp_query.cu's kernel. The 8 hidden products
-// run as 3xTF32 mma.sync tile products (mlp_mma.cuh: tc_product, fp32
-// accuracy, sums promoted every 32 contraction steps); the one-row head is
-// fp32 FMA. One block of 8 warps walks a 64-point tile through every layer
-// with its activations and encoded input in shared memory (167 KB at ABC
-// width with the weight ring: one block per SM); the tile never leaves the
-// SM. scripts/torch_kernel_ablation.py measures the alternatives (a
+// run as mma.sync tile products at the tier (mlp_mma.cuh: tc_product; 3xTF32
+// at fp32 accuracy or one bf16 pass, sums promoted every 32 contraction
+// steps); the one-row head is fp32 FMA (of bf16-rounded operands at BF16).
+// One block of 8 warps walks a 64-point tile through every layer with its
+// activations and encoded input in shared memory (167 KB at ABC width with
+// the weight ring: one block per SM); the tile never leaves the SM. scripts/torch_kernel_ablation.py measures the alternatives (a
 // 128-point tile, weights split once a launch, one weight stream over all
 // layers).
 
@@ -38,6 +40,7 @@ __host__ __device__ inline size_t value_smem_floats(const Layout& lay) {
   return (size_t)RING + (size_t)(ts.ar + ts.xr) * SA + 4 * P;
 }
 
+template <Tier T>
 __global__ void __launch_bounds__(NT, 1)
     mlp_value_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, float* udf, Layout lay,
@@ -65,7 +68,8 @@ __global__ void __launch_bounds__(NT, 1)
   const float* h = X;
   for (int l = 0; l < L - 1; ++l) {
     const int M = lay.out[l];
-    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring, acc);
+    tc_product<T, false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring,
+                         acc);
     const float s = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
     for_groups(M, [&](int mt, int nt) {
 #pragma unroll
@@ -82,7 +86,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     h = act;
   }
-  head_dot(W + lay.off[L - 1], lay.in[L - 1], act, red, red);
+  head_dot<T>(W + lay.off[L - 1], lay.in[L - 1], act, red, red);
   if (threadIdx.x < P) {
     const float y0 = red[threadIdx.x] + B[L - 1];
     const float u = lay.udf_type == 0   ? fabsf(y0)
@@ -90,6 +94,19 @@ __global__ void __launch_bounds__(NT, 1)
                                         : y0;
     udf[n0 + threadIdx.x] = u / lay.scale;
   }
+}
+
+template <Tier T>
+int launch(const float* pts, const float* W, const float* B, float* udf,
+           const Layout& lay, long long n, cudaStream_t stream) {
+  const size_t bytes = value_smem_floats(lay) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_value_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  mlp_value_kernel<T><<<(unsigned)(n / P), NT, bytes, stream>>>(
+      pts, W, B, udf, lay, (size_t)n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -105,22 +122,19 @@ long long emap_mlp_value_smem_bytes(const int* layout) {
 }
 
 // pts (8, n), W (rmax, ldw), B (rmax, L) -> udf (n,); all fp32, contiguous,
-// on the device; n a multiple of 64. Returns the CUDA error of the shared
+// on the device; n a multiple of 64; tier a Tier code. Returns
+// cudaErrorInvalidValue on anything else, the CUDA error of the shared
 // memory opt-in, else cudaGetLastError() after the launch.
 int emap_mlp_value(const float* pts, const float* W, const float* B,
                    float* udf, long long n, const int* layout, float scale,
-                   void* stream) {
+                   int tier, void* stream) {
   Layout lay;
   if (parse_tc(layout, scale, &lay) || n <= 0 || n % P)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = value_smem_floats(lay) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      mlp_value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  mlp_value_kernel<<<(unsigned)(n / P), NT, bytes, (cudaStream_t)stream>>>(
-      pts, W, B, udf, lay, (size_t)n);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tier == TF32X3) return launch<TF32X3>(pts, W, B, udf, lay, n, st);
+  if (tier == BF16) return launch<BF16>(pts, W, B, udf, lay, n, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -19,7 +19,10 @@ line directions from jittered gradients, and point shifting.
 
 On a CUDA device every field query launches a kernel; a net the kernels do
 not take raises from check_kernel_cfg. On the CPU the kernels' plain
-versions run.
+versions run. Every query runs at the model's tier, ucfg.precision ("high"
+unless the conf pins it: 3xTF32, fp32 accuracy; "default": one bf16 pass),
+as the JAX package's extraction does; the training's `field_precision`
+does not reach it.
 
 `trace`, where given, is a list that receives one dict per device stage:
 {"stage": "grid" | "sweep", "points": ..., "seconds": ...} (sweeps also

@@ -8,7 +8,9 @@ functions on a parameter dict (port of emap_tpu/fields/udf.py).
 * softplus(100 x)/100 activations, the skip concat scaled by 1/sqrt(2),
   and the abs/square/sdf head;
 * the spatial gradient through torch.autograd.grad(create_graph=True), so
-  an outer loss can differentiate through it (double backward).
+  an outer loss can differentiate through it (double backward);
+* the JAX package's matmul tiers (`TIERS`): `precision` selects the tier of
+  every product of apply_udf, and of its backward to any order.
 
 Parameters are {"lin{l}": {"g", "v", "b"}} (or {"w", "b"} without weight
 norm) with the JAX package's key names and shapes, so checkpoints map 1:1.
@@ -16,6 +18,7 @@ norm) with the JAX package's key names and shapes, so checkpoints map 1:1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict
@@ -26,6 +29,80 @@ import torch
 from emap_tpu_torch.fields.embedder import pe_dim, positional_encoding
 
 Params = Dict[str, Any]
+
+# The matmul tiers of the conf keys `precision` and `bwd_precision` (here)
+# and `sampler_precision` and `field_precision` (render/renderer.py), by the
+# JAX package's names. "default" is one bf16 pass: both operands rounded to
+# bf16 (to nearest, ties to even), products and sums in fp32, an fp32
+# result, as the TPU's MXU takes one. "high" and "highest" are fp32: the JAX
+# package's "high" is a 3-pass bf16 emulation of fp32 for the MXU; on the
+# H100 the kernels get fp32 from 3xTF32 and other matmuls run in fp32.
+# jax.lax.Precision's aliases ("fastest", "bfloat16", ...) are not taken.
+TIERS = ("default", "high", "highest")
+
+
+def check_tier(name: str, key: str, allow_empty: bool = False) -> str:
+    """`name` if it is a tier (or "" where the key may inherit), else
+    ValueError naming the conf key."""
+    if name in TIERS or (allow_empty and name == ""):
+        return name
+    raise ValueError(f"unknown matmul tier {key} = {name!r}: one of "
+                     f"{', '.join(TIERS)}" + (' or ""' if allow_empty else ""))
+
+
+def adjoint_tier(cfg: "UDFConfig") -> str:
+    """The tier of the fused backward's adjoint products (the JAX package's
+    `bwd_precision or precision`); the primal recompute runs at
+    cfg.precision."""
+    return cfg.bwd_precision or cfg.precision
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 value (ties to even), in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """cuBLAS may multiply fp32 matrices in TF32 inside the block; the flag is
+    restored after it (the port's setting stays `use_fp32_matmuls`). A bf16
+    value is exact in TF32 and a product of two is exact in fp32, so a TF32
+    matmul of bf16-rounded operands is the bf16 tier's one pass with fp32
+    sums and an fp32 result (a bf16 matmul would round the result to bf16,
+    which the TPU does not). The flag is read when a matmul is dispatched,
+    so a CUDA graph captured inside the block holds TF32 kernels."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """a @ b (2-D) at the bf16 tier, with the products of its backward at the
+    same tier to any order, as XLA's transposed dots keep their precision."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with tf32_matmuls():
+            return torch.matmul(round_bf16(a), round_bf16(b))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _Bf16Matmul.apply(g, b.mT) if ctx.needs_input_grad[0] else None
+        gb = _Bf16Matmul.apply(a.mT, g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def tier_linear(x: torch.Tensor, w: torch.Tensor, tier: str) -> torch.Tensor:
+    """x (..., in) @ w.T for w (out, in) at a matmul tier."""
+    if check_tier(tier, "precision") != "default":
+        return torch.matmul(x, w.T)
+    y = _Bf16Matmul.apply(x.reshape(-1, x.shape[-1]), w.T)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,22 +118,30 @@ class UDFConfig:
     geometric_init: bool = True
     weight_norm: bool = True
     udf_type: str = "abs"
-    # Parsed for conf compatibility with emap_tpu. The port computes every
-    # path in float32 for now, so `precision` and `bwd_precision` select
-    # nothing yet, and the experiment knobs below (`chain_split`,
-    # `chain_mode`, `cache_acts`, `tile_fwd`, `tile_bwd`) have no CUDA
-    # counterpart. `fuse_pe` is what the CUDA kernels always do.
+    # The model's matmul tier (TIERS): apply_udf's products, and the fused
+    # kernels' (extraction, and the training query unless the renderer's
+    # field_precision replaces it).
     precision: str = "high"
-    # "off" keeps the plain autograd field query in render_core; "auto" and
-    # "on" use the fused kernel pair (kernels/mlp_train.py).
+    # "off" keeps the plain autograd field query in render_core; "on" uses
+    # the fused kernel pair (kernels/mlp_train.py); "auto" uses it except at
+    # "highest" (render/renderer.py::uses_kernels).
     pallas_train: str = "auto"
+    # The tier of the fused backward's adjoint products; "" inherits
+    # `precision` (adjoint_tier).
     bwd_precision: str = ""
+    # Parsed for conf compatibility with emap_tpu: the experiment knobs below
+    # (`chain_split`, `chain_mode`, `cache_acts`, `tile_fwd`, `tile_bwd`)
+    # have no CUDA counterpart. `fuse_pe` is what the CUDA kernels always do.
     fuse_pe: bool = True
     chain_split: int = 1
     chain_mode: str = "seq"
     cache_acts: bool = False
     tile_fwd: int = 0
     tile_bwd: int = 0
+
+    def __post_init__(self):
+        check_tier(self.precision, "precision")
+        check_tier(self.bwd_precision, "bwd_precision", allow_empty=True)
 
     @classmethod
     def from_conf(cls, conf) -> "UDFConfig":
@@ -175,7 +260,8 @@ def udf_head(x: torch.Tensor, udf_type: str) -> torch.Tensor:
 
 
 def apply_udf(params: Params, pts: torch.Tensor, cfg: UDFConfig) -> torch.Tensor:
-    """pts (..., 3) -> (..., d_out); channel 0 is the UDF value."""
+    """pts (..., 3) -> (..., d_out); channel 0 is the UDF value. Every
+    product runs at cfg.precision (tier_linear)."""
     inputs = pts * cfg.scale
     if cfg.multires > 0:
         inputs = positional_encoding(inputs, cfg.multires)
@@ -185,7 +271,7 @@ def apply_udf(params: Params, pts: torch.Tensor, cfg: UDFConfig) -> torch.Tensor
         if l in cfg.skip_in:
             x = torch.cat([x, inputs], dim=-1) / math.sqrt(2.0)
         layer = params[f"lin{l}"]
-        x = torch.matmul(x, effective_weight(layer).T) + layer["b"]
+        x = tier_linear(x, effective_weight(layer), cfg.precision) + layer["b"]
         if l < n_linear - 1:
             x = softplus100(x)
     head = udf_head(x[..., :1], cfg.udf_type) / cfg.scale

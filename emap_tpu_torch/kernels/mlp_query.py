@@ -11,7 +11,8 @@ value alone for the extraction grid.
 * `value_and_grad`: the wrapper. A CPU tensor takes the plain version; a
   CUDA tensor launches csrc/mlp_query.cu (replaces
   emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad) or raises.
-  `value_and_grad.launches` counts the kernel launches.
+  `value_and_grad.launches` counts the kernel launches, and
+  `value_and_grad.tier_launches` the same by kernel tier.
   `value_and_grad_sliced` calls it over slices of at most SLICE_CAP points,
   which bounds the kernel's device scratch on the extraction's large calls.
 * `value`: the same for csrc/mlp_value.cu (replaces
@@ -23,6 +24,16 @@ value alone for the extraction grid.
 Arrays are feature-major, (features, points). The kernels read the raw
 points as (8, N) with 3 live rows and return udf (N,) and the spatial
 gradient (8, N) with 3 live rows. N must be a multiple of POINT_TILE.
+
+Every product runs at cfg.precision, as the JAX package's `_kernel_dot`
+(emap_tpu/kernels/mlp_query.py:249-278) runs it: the kernels have two
+tiers (kernel_tier), one bf16 pass ("default": weights or their
+transpose, activations, the chain's cotangents and the encoded rows
+rounded to bf16, fp32 products and sums) and fp32 ("high", "highest":
+3xTF32 on the tensor cores). Bias adds, softplus, sigmoids, the PE and its
+Jacobian stay fp32. The JAX package's extraction query also keeps its
+sigmoid residuals in bf16 on the fast tiers (mlp_query.py:315-319), a
+workaround for the TPU's VMEM; the port keeps them in fp32 at every tier.
 """
 
 from __future__ import annotations
@@ -32,7 +43,14 @@ import ctypes
 import numpy as np
 import torch
 
-from emap_tpu_torch.fields.udf import UDFConfig, effective_weight, softplus100
+from emap_tpu_torch.fields.udf import (
+    UDFConfig,
+    adjoint_tier,
+    check_tier,
+    effective_weight,
+    round_bf16,
+    softplus100,
+)
 
 POINT_TILE = 64  # points per CUDA block (csrc/mlp_common.cuh: P)
 # Most points a value_and_grad launch takes in value_and_grad_sliced: the
@@ -43,6 +61,24 @@ POINT_TILE = 64  # points per CUDA block (csrc/mlp_common.cuh: P)
 SLICE_CAP = 262_144
 INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
 _UDF_TYPES = {"abs": 0, "square": 1, "sdf": 2}
+# The name of each kernel tier code in the wrappers' tier_launches.
+TIER_NAMES = ("3xtf32", "bf16")
+
+
+def kernel_tier(name: str) -> int:
+    """The kernels' code for a conf tier (csrc/mlp_mma.cuh: Tier): 1, one
+    bf16 pass, for "default"; 0, three TF32 passes at fp32 accuracy, for
+    "high" and "highest". Raises for a tier they lack."""
+    return int(check_tier(name, "precision") == "default")
+
+
+def tier_dot(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
+    """a @ b as the kernels take it at a tier, for the plain versions: at
+    "default" both operands rounded to bf16 first, then fp32 products and
+    sums (TF32 off: `use_fp32_matmuls`); fp32 otherwise."""
+    if kernel_tier(tier):
+        return torch.matmul(round_bf16(a), round_bf16(b))
+    return torch.matmul(a, b)
 
 
 def round_up(x: int, m: int) -> int:
@@ -218,7 +254,8 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     """Plain PyTorch version of the fused query: x_T (8, N) raw points ->
     (udf (N,), grad (8, N)). The same math as the kernel, feature-major:
     encode, forward keeping sigmoid(100 z), reverse through W^T, PE
-    Jacobian."""
+    Jacobian; every product at cfg.precision."""
+    tier = cfg.precision
     layers = unpack_weights(w_pack, b_pack, cfg)
     L = len(layers)
     d0 = cfg.dims[0]
@@ -228,7 +265,7 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     for l, (w, b) in enumerate(layers):
         if l in cfg.skip_in:
             h = torch.cat([h, x[:d0]], dim=0) * INV_SQRT2
-        z = torch.matmul(w, h) + b[:, None]
+        z = tier_dot(w, h, tier) + b[:, None]
         if l < L - 1:
             sigmoids.append(torch.sigmoid(100.0 * z))
             h = softplus100(z)
@@ -239,7 +276,7 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     g = dy_of_y0(y0, cfg)
     g_inputs = torch.zeros_like(x)
     for l in reversed(range(L)):
-        g = torch.matmul(layers[l][0].T, g)  # (in_l, T)
+        g = tier_dot(layers[l][0].T, g, tier)  # (in_l, T)
         if l in cfg.skip_in:
             g_inputs = g_inputs + torch.nn.functional.pad(
                 g[-d0:] * INV_SQRT2, (0, 0, 0, g_inputs.shape[0] - d0))
@@ -253,7 +290,8 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
 
 def value_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     """Plain PyTorch version of the value kernel: x_T (8, N) raw points ->
-    udf (N,). The forward of value_and_grad_plain without residuals."""
+    udf (N,). The forward of value_and_grad_plain without residuals, at
+    cfg.precision."""
     layers = unpack_weights(w_pack, b_pack, cfg)
     L = len(layers)
     d0 = cfg.dims[0]
@@ -262,14 +300,17 @@ def value_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     for l, (w, b) in enumerate(layers):
         if l in cfg.skip_in:
             h = torch.cat([h, x[:d0]], dim=0) * INV_SQRT2
-        z = torch.matmul(w, h) + b[:, None]
+        z = tier_dot(w, h, cfg.precision) + b[:, None]
         h = softplus100(z) if l < L - 1 else z
     return head_value(h[0], cfg)
 
 
 def check_operands(cfg: UDFConfig, tensors) -> int:
-    """Validate the CUDA operands; returns N (points)."""
+    """Validate the CUDA operands and cfg's tiers (a tier the kernels lack
+    raises); returns N (points)."""
     check_kernel_cfg(cfg)
+    kernel_tier(cfg.precision)
+    kernel_tier(adjoint_tier(cfg))
     x_T = tensors[0]
     n = x_T.shape[1]
     if x_T.shape[0] != 8 or n % POINT_TILE:
@@ -293,18 +334,21 @@ def _query_lib():
         lib.emap_mlp_value_and_grad_scratch_rows.argtypes = [vp]
         lib.emap_mlp_value_and_grad_scratch_rows.restype = ctypes.c_longlong
         lib.emap_mlp_value_and_grad.argtypes = [
-            vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float, vp]
+            vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, vp]
         lib.emap_mlp_value_and_grad.restype = ctypes.c_int
         lib._emap_typed = True
     return lib
 
 
 def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """(udf (N,), grad (8, N)) at raw points x_T (8, N). CPU tensors take
-    value_and_grad_plain; CUDA tensors launch the kernel."""
+    """(udf (N,), grad (8, N)) at raw points x_T (8, N), at cfg.precision.
+    CPU tensors take value_and_grad_plain; CUDA tensors launch the
+    kernel."""
     if not x_T.is_cuda:
         return value_and_grad_plain(x_T, w_pack, b_pack, cfg)
     n = check_operands(cfg, (x_T, w_pack, b_pack))
+    tier = kernel_tier(cfg.precision)
     lib = _query_lib()
     layout = kernel_layout(cfg)
     rows = lib.emap_mlp_value_and_grad_scratch_rows(layout.ctypes.data)
@@ -318,14 +362,16 @@ def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
     err = lib.emap_mlp_value_and_grad(
         x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
         grad.data_ptr(), scratch.data_ptr(), n, layout.ctypes.data,
-        float(cfg.scale), stream)
+        float(cfg.scale), tier, stream)
     if err:
         raise RuntimeError(f"mlp_query kernel launch failed: CUDA error {err}")
     value_and_grad.launches += 1
+    value_and_grad.tier_launches[TIER_NAMES[tier]] += 1
     return udf, grad
 
 
 value_and_grad.launches = 0
+value_and_grad.tier_launches = dict.fromkeys(TIER_NAMES, 0)
 
 
 def value_and_grad_sliced(x_T, w_pack, b_pack, cfg: UDFConfig,
@@ -354,18 +400,20 @@ def _value_lib():
         lib.emap_mlp_value_smem_bytes.argtypes = [vp]
         lib.emap_mlp_value_smem_bytes.restype = ctypes.c_longlong
         lib.emap_mlp_value.argtypes = [
-            vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float, vp]
+            vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, vp]
         lib.emap_mlp_value.restype = ctypes.c_int
         lib._emap_typed = True
     return lib
 
 
 def value(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """udf (N,) at raw points x_T (8, N). CPU tensors take value_plain;
-    CUDA tensors launch the kernel (no device scratch)."""
+    """udf (N,) at raw points x_T (8, N), at cfg.precision. CPU tensors take
+    value_plain; CUDA tensors launch the kernel (no device scratch)."""
     if not x_T.is_cuda:
         return value_plain(x_T, w_pack, b_pack, cfg)
     n = check_operands(cfg, (x_T, w_pack, b_pack))
+    tier = kernel_tier(cfg.precision)
     lib = _value_lib()
     layout = kernel_layout(cfg)
     if lib.emap_mlp_value_smem_bytes(layout.ctypes.data) < 0:
@@ -375,14 +423,16 @@ def value(x_T, w_pack, b_pack, cfg: UDFConfig):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.emap_mlp_value(
         x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
-        n, layout.ctypes.data, float(cfg.scale), stream)
+        n, layout.ctypes.data, float(cfg.scale), tier, stream)
     if err:
         raise RuntimeError(f"mlp_value kernel launch failed: CUDA error {err}")
     value.launches += 1
+    value.tier_launches[TIER_NAMES[tier]] += 1
     return udf
 
 
 value.launches = 0
+value.tier_launches = dict.fromkeys(TIER_NAMES, 0)
 
 
 def _packed_points(params, pts, cfg: UDFConfig):
@@ -426,7 +476,8 @@ def value_flops(cfg: UDFConfig) -> int:
 
 
 __all__ = [
-    "POINT_TILE", "SLICE_CAP", "fold_weights", "pack_weights",
+    "POINT_TILE", "SLICE_CAP", "TIER_NAMES", "kernel_tier",
+    "tier_dot", "fold_weights", "pack_weights",
     "unpack_weights", "pe_perm", "blocked_pe_columns", "layer_dims",
     "kernel_layout", "value_and_grad", "value_and_grad_plain",
     "value_and_grad_sliced", "value", "value_plain", "query_value",

@@ -16,10 +16,15 @@ hand-derived second-order backward (port of emap_tpu/kernels/mlp_train.py).
               Wbar_l += z_hat_l u_l^T;  bbar_l += sum z_hat_l;
               a_hat_{l-1} = non-x rows of W_l^T z_hat_l (scaled at skips)
 
+  The forward recompute and the gradient chain run at cfg.precision, the
+  adjoint products (ascend, descend, both weight-gradient outer products)
+  at the adjoint tier, bwd_precision or else precision
+  (fields/udf.py::adjoint_tier), as `_train_bwd_math` runs them.
 * `train_bwd`: the wrapper. CPU tensors take the plain version; CUDA
   tensors launch csrc/mlp_train.cu (replaces
   emap_tpu/kernels/mlp_train.py::_pallas_train_bwd) or raise.
-  `train_bwd.launches` counts the kernel launches.
+  `train_bwd.launches` counts the kernel launches, `train_bwd.tier_launches`
+  the same by (primal, adjoint) tier pair (`pair_name`).
 * `TrainQuery`: the autograd.Function joining the two (forward =
   mlp_query.value_and_grad, backward = train_bwd), the counterpart of the
   JAX package's `_train_query` custom_vjp.
@@ -38,24 +43,38 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from emap_tpu_torch.fields.udf import UDFConfig, softplus100
+from emap_tpu_torch.fields.udf import UDFConfig, adjoint_tier, softplus100
 from emap_tpu_torch.kernels import mlp_query
 from emap_tpu_torch.kernels.mlp_query import (
     INV_SQRT2,
     POINT_TILE,
+    TIER_NAMES,
     check_operands,
     dy_of_y0,
     encode_fused,
     kernel_layout,
+    kernel_tier,
     pack_weights,
     pe_jacT_fused,
+    tier_dot,
     unpack_weights,
 )
 
 
+def pair_name(primal: int, adjoint: int) -> str:
+    """The name of a (primal, adjoint) pair of kernel tier codes:
+    "bf16", "3xtf32", or "3xtf32+bf16" for a 3xTF32 primal and a bf16
+    adjoint."""
+    if primal == adjoint:
+        return TIER_NAMES[primal]
+    return f"{TIER_NAMES[primal]}+{TIER_NAMES[adjoint]}"
+
+
 def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     """x (d0_pad, T) encoded, ubar (1, T), gbar (d0_pad, T) encoded-space
-    -> (wbar (row_max, sum_in), bbar (row_max, L))."""
+    -> (wbar (row_max, sum_in), bbar (row_max, L)). Primal products at
+    cfg.precision, adjoint products at adjoint_tier(cfg)."""
+    tp, ta = cfg.precision, adjoint_tier(cfg)
     layers = unpack_weights(w_pack, b_pack, cfg)
     L = len(layers)
     d0 = cfg.dims[0]
@@ -70,7 +89,7 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
         if l in cfg.skip_in:
             h = torch.cat([h, x[:d0]], dim=0) * INV_SQRT2
         us.append(h)
-        z = torch.matmul(W(l), h) + layers[l][1][:, None]
+        z = tier_dot(W(l), h, tp) + layers[l][1][:, None]
         if l < L - 1:
             zs.append(z)
             h = softplus100(z)
@@ -82,7 +101,7 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     carries = [None] * L
     r = dy
     for l in reversed(range(1, L)):
-        q = torch.matmul(W(l).T, r)
+        q = tier_dot(W(l).T, r, tp)
         carry = q[:-d0] * INV_SQRT2 if l in cfg.skip_in else q
         carries[l] = carry
         r = carry * ss[l - 1]
@@ -102,8 +121,8 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
                               dim=0)
         else:
             q_hat = carryhat
-        w_contrib[l] = torch.matmul(r_of(l), q_hat.T)
-        r_hat = torch.matmul(W(l), q_hat)
+        w_contrib[l] = tier_dot(r_of(l), q_hat.T, ta)
+        r_hat = tier_dot(W(l), q_hat, ta)
         if l < L - 1:
             s_hat[l] = r_hat * carries[l + 1]
             carryhat = r_hat * ss[l]
@@ -119,11 +138,11 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
         else:
             s = ss[l]
             z_hat = a_hat * s + s_hat[l] * (100.0 * s * (1.0 - s))
-        w_contrib[l] = w_contrib[l] + torch.matmul(z_hat, us[l].T)
+        w_contrib[l] = w_contrib[l] + tier_dot(z_hat, us[l].T, ta)
         b_contrib[l] = torch.sum(z_hat, dim=1, keepdim=True)
         if l == 0:
             break
-        u_hat = torch.matmul(W(l).T, z_hat)
+        u_hat = tier_dot(W(l).T, z_hat, ta)
         a_hat = u_hat[:-d0] * INV_SQRT2 if l in cfg.skip_in else u_hat
 
     def pad(a):
@@ -151,7 +170,7 @@ def _train_lib():
         lib.emap_mlp_train_bwd_sizes.restype = ctypes.c_int
         lib.emap_mlp_train_bwd.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp,
-            ctypes.c_float, vp]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, vp]
         lib.emap_mlp_train_bwd.restype = ctypes.c_int
         lib._emap_typed = True
     return lib
@@ -159,11 +178,12 @@ def _train_lib():
 
 def train_bwd(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     """(wbar, bbar) for cotangents ubar (1, N), gbar (8, N) at raw points
-    x_T (8, N). CPU tensors take train_bwd_plain; CUDA tensors launch the
-    kernel."""
+    x_T (8, N), at cfg's primal and adjoint tiers. CPU tensors take
+    train_bwd_plain; CUDA tensors launch the kernel."""
     if not x_T.is_cuda:
         return train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg)
     n = check_operands(cfg, (x_T, w_pack, b_pack, ubar, gbar))
+    tiers = kernel_tier(cfg.precision), kernel_tier(adjoint_tier(cfg))
     if ubar.shape != (1, n) or gbar.shape != (8, n):
         raise ValueError("cotangents must be ubar (1, N) and gbar (8, N)")
     lib = _train_lib()
@@ -181,14 +201,17 @@ def train_bwd(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     err = lib.emap_mlp_train_bwd(
         x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), ubar.data_ptr(),
         gbar.data_ptr(), wbar.data_ptr(), bbar.data_ptr(), scratch.data_ptr(),
-        partials.data_ptr(), n, layout.ctypes.data, float(cfg.scale), stream)
+        partials.data_ptr(), n, layout.ctypes.data, float(cfg.scale), *tiers,
+        stream)
     if err:
         raise RuntimeError(f"mlp_train kernel launch failed: CUDA error {err}")
     train_bwd.launches += 1
+    train_bwd.tier_launches[pair_name(*tiers)] += 1
     return wbar, bbar
 
 
 train_bwd.launches = 0
+train_bwd.tier_launches = {pair_name(p, a): 0 for p in (0, 1) for a in (0, 1)}
 
 
 def train_bwd_flops(cfg: UDFConfig) -> int:

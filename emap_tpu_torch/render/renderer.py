@@ -8,7 +8,10 @@ spatial gradient at the mid-points -> occlusion/visibility cumprod ->
 two-sided alpha blend -> weights -> edge/depth/normal integration and the
 eikonal terms. The train step differentiates the result with autograd; the
 loss depends on the spatial gradient, so the field query is differentiated
-twice. The two schedules (`cos_anneal_ratio`, `flip_saturation`) may be
+twice. The field query runs at the tiers `resolved_tiers` names: the
+up-sampler's at `sampler_precision`, render_core's at `field_precision`
+where it is set (else the model's `precision`), as in the JAX package.
+The two schedules (`cos_anneal_ratio`, `flip_saturation`) may be
 python floats or 0-d tensors on the rays' device.
 """
 
@@ -19,7 +22,13 @@ import dataclasses
 import torch
 
 from emap_tpu_torch.fields.scalars import beta_gamma_zeta, inv_s_value
-from emap_tpu_torch.fields.udf import UDFConfig, udf_value, udf_value_and_gradient
+from emap_tpu_torch.fields.udf import (
+    UDFConfig,
+    adjoint_tier,
+    check_tier,
+    udf_value,
+    udf_value_and_gradient,
+)
 from emap_tpu_torch.render import sampling
 
 
@@ -37,9 +46,15 @@ class RenderConfig:
     use_norm_grad_for_cosine: bool = False
     near_surface: float = 0.05
     beta_min: float = 0.00005
-    # Parsed for conf compatibility; the port samples and trains in float32
-    # for now, so neither selects a tier yet.
+    # The matmul tier (fields/udf.py::TIERS) of the up-sampler's no-grad
+    # field queries: they only place samples, which render_core queries
+    # again.
     sampler_precision: str = "default"
+    # The tier of render_core's field query, the training query: "" keeps
+    # the model's `precision`; a tier replaces it for that query alone
+    # (extraction stays at the model's). from_conf defaults it to "default",
+    # the JAX package's production tier (train/runner.py keeps the model's
+    # where a conf pins only `precision`).
     field_precision: str = ""
 
     def __post_init__(self):
@@ -52,6 +67,8 @@ class RenderConfig:
         if self.upsampling_type not in ("classical", "mix"):
             raise ValueError(
                 f"unknown upsampling_type {self.upsampling_type!r}")
+        check_tier(self.sampler_precision, "sampler_precision")
+        check_tier(self.field_precision, "field_precision", allow_empty=True)
 
     @classmethod
     def from_conf(cls, conf) -> "RenderConfig":
@@ -122,12 +139,52 @@ def safe_l2norm(x, dim=-1, keepdim=False):
     return torch.where(nz, norm, torch.zeros_like(norm))
 
 
-def query_field(params, pts_flat, udf_cfg: UDFConfig):
-    """Value + spatial gradient at render_core's no-grad sample points: the
-    fused kernels (CUDA on the card, their plain versions on the CPU), or
-    plain autograd with `pallas_train = "off"`. The kernels refuse a net
-    they do not take (kernels/mlp_query.py::check_kernel_cfg)."""
+def field_config(cfg: RenderConfig, udf_cfg: UDFConfig) -> UDFConfig:
+    """The UDFConfig of render_core's field query: the model's, with
+    `precision` replaced by `field_precision` where that is set and differs
+    (emap_tpu/render/renderer.py:220-225). An empty `bwd_precision` then
+    inherits the replaced tier."""
+    if cfg.field_precision and cfg.field_precision != udf_cfg.precision:
+        return dataclasses.replace(udf_cfg, precision=cfg.field_precision)
+    return udf_cfg
+
+
+def sampler_config(cfg: RenderConfig, udf_cfg: UDFConfig) -> UDFConfig:
+    """The UDFConfig of the up-sampler's field queries
+    (emap_tpu/render/renderer.py:386-388)."""
+    return dataclasses.replace(udf_cfg, precision=cfg.sampler_precision)
+
+
+def uses_kernels(udf_cfg: UDFConfig) -> bool:
+    """Whether render_core's field query takes the fused kernels (at
+    udf_cfg's tiers) or plain autograd: "off" never, "on" always, "auto"
+    unless the field or adjoint tier is "highest", where the JAX package
+    takes XLA autodiff at HIGHEST (emap_tpu/render/renderer.py:147-156) and
+    the port plain autograd in fp32."""
     if udf_cfg.pallas_train == "off":
+        return False
+    if udf_cfg.pallas_train == "on":
+        return True
+    return "highest" not in (udf_cfg.precision, udf_cfg.bwd_precision)
+
+
+def resolved_tiers(cfg: RenderConfig, udf_cfg: UDFConfig) -> dict:
+    """The tier each site computes at, and the training query's route: the
+    training field query (primal and adjoint), the up-sampler, extraction
+    (the model's tier)."""
+    field = field_config(cfg, udf_cfg)
+    return {"field": field.precision, "adjoint": adjoint_tier(field),
+            "sampler": cfg.sampler_precision,
+            "extraction": udf_cfg.precision,
+            "route": "kernels" if uses_kernels(field) else "autograd"}
+
+
+def query_field(params, pts_flat, udf_cfg: UDFConfig):
+    """Value + spatial gradient at render_core's no-grad sample points, at
+    udf_cfg's tiers: the fused kernels (CUDA on the card, their plain
+    versions on the CPU), or plain autograd (uses_kernels). The kernels
+    refuse a net they do not take (kernels/mlp_query.py::check_kernel_cfg)."""
+    if not uses_kernels(udf_cfg):
         return udf_value_and_gradient(params["udf"], pts_flat, udf_cfg)
     from emap_tpu_torch.kernels.mlp_train import udf_train_value_and_gradient
 
@@ -147,7 +204,8 @@ def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
     pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., None]
     dirs = rays_d[:, None, :].expand(pts.shape)
 
-    udf_flat, gradients_flat = query_field(params, pts.reshape(-1, 3), udf_cfg)
+    udf_flat, gradients_flat = query_field(params, pts.reshape(-1, 3),
+                                           field_config(cfg, udf_cfg))
     udf = udf_flat.reshape(batch, n)
     gradients = gradients_flat.reshape(batch, n, 3)
 
@@ -254,8 +312,10 @@ def render(params, rays_o, rays_d, near: float, far: float, depth_scale,
                                         device=rays_o.device)
 
     if cfg.n_importance > 0:
+        sampler_cfg = sampler_config(cfg, udf_cfg)
+
         def udf_fn(p):
-            return udf_value(params["udf"], p, udf_cfg)
+            return udf_value(params["udf"], p, sampler_cfg)
 
         if cfg.upsampling_type == "classical":
             z_vals = sampling.importance_sample(

@@ -15,6 +15,12 @@ logging cadences, so steps between them make no host sync.
 `train.profile_steps` traces that many steps with torch.profiler from the
 run's sixth step into <base_exp_dir>/profile, with the chain forced to 1.
 
+Matmul tiers (`self.tiers`): training queries the field at
+`field_precision` (the bf16 tier unless the conf sets it) and up-samples
+at `sampler_precision`; extraction runs at the model's `precision`. A conf
+that pins `precision` and not `field_precision` trains at the pinned tier
+too, as the JAX runner has it.
+
 Checkpoints: native .npz (ckpt/native.py) with the JAX package's layout,
 saved only when the rolling 500-step edge-loss average improves. One
 deliberate difference: the last step of a run closes a partial window (a run
@@ -37,6 +43,7 @@ four result files as the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -66,7 +73,7 @@ from emap_tpu_torch.data.dataset import (
 from emap_tpu_torch.data.png import write_png
 from emap_tpu_torch.extract.parametric import get_parametric_edge
 from emap_tpu_torch.fields.udf import UDFConfig
-from emap_tpu_torch.render.renderer import RenderConfig, render
+from emap_tpu_torch.render.renderer import RenderConfig, render, resolved_tiers
 from emap_tpu_torch.train import schedules
 from emap_tpu_torch.train.state import init_train_state, make_state
 from emap_tpu_torch.train.step import (
@@ -132,6 +139,15 @@ class Runner:
         self.ucfg = UDFConfig.from_conf(conf.get_config("model.udf_network"))
         self.rcfg = RenderConfig.from_conf(
             conf.get_config("model.udf_renderer"))
+        if ("model.udf_network.precision" in conf
+                and "model.udf_renderer.field_precision" not in conf):
+            # a pinned model tier governs the training query too, unless the
+            # conf pins field_precision as well (whose conf default is the
+            # bf16 tier): the JAX runner's rule, emap_tpu/train/runner.py:85-93
+            self.rcfg = dataclasses.replace(self.rcfg, field_precision="")
+        # the tier each site computes at (render/renderer.py::resolved_tiers)
+        self.tiers = resolved_tiers(self.rcfg, self.ucfg)
+        logger.info("matmul tiers: %s", self.tiers)
         self.tcfg = TrainConfig.from_conf(conf, self.near, self.far)
 
         self.end_iter = conf.get_int("train.end_iter")

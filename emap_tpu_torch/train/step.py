@@ -297,7 +297,11 @@ class ChainedStep:
     since the next replay overwrites it. The graph holds the addresses of
     the state's tensors: a call with another state object captures again.
     A capture or replay that fails raises; nothing falls back to eager
-    dispatch on the card. On the CPU the same step runs eagerly.
+    dispatch on the card. On the CPU the same step runs eagerly. The step
+    computes at the tiers its configs resolve to
+    (render/renderer.py::resolved_tiers): the capture records the
+    up-sampler's TF32 matmuls (its bf16 tier) and the kernels launched at
+    their tiers, so a replay computes what an eager step computes.
 
     The kernel wrappers count a launch where they launch: the capture
     counts the launches that the graph holds without running them, and a

@@ -15,8 +15,10 @@ from torch.profiler), and the grid value kernel (#3, mlp_value.cu) at a
 128^3 grid pass (2,097,152 points). Every line gives the max relative
 error against the plain PyTorch versions (udf, grad, the worst W-bar/b-bar
 block), and ptxas' registers and spills lead each ablation's lines.
-Ablations that drop work give wrong results by design: they measure what
-that work costs. The card's name and power limit lead the output. No CPU
+Every ablation runs at the 3xTF32 tier (precision "high", fp32 accuracy),
+the tier the design choices were made for; its patches leave the bf16
+tier's kernels in the same libraries building. Ablations that drop work
+give wrong results by design: they measure what that work costs. The card's name and power limit lead the output. No CPU
 fallback: without CUDA it fails.
 """
 
@@ -32,10 +34,35 @@ import tempfile
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
-THREE_PASSES = """        mma_tf32(acc[mt][nt], al, bh[nt]);
-        mma_tf32(acc[mt][nt], ah, bl[nt]);
-        mma_tf32(acc[mt][nt], ah, bh[nt]);"""
-# name: {file: [(text in the source, replacement)]}
+THREE_PASSES = """          mma_tf32(acc[mt][nt], al, bh[nt]);
+          mma_tf32(acc[mt][nt], ah, bl[nt]);
+          mma_tf32(acc[mt][nt], ah, bh[nt]);"""
+# For the ablations that split an operand once, as its chunk lands: a
+# reader of mma_chunk's TF32X3 branch may return the two halves instead of
+# the value, and split_any takes either.
+STAGED = """// An operand split before it is read: hi and lo as floats.
+struct Staged {
+  float hi, lo;
+};
+__device__ __forceinline__ void split_any(float x, unsigned& h, unsigned& l) {
+  split3(x, h, l);
+}
+__device__ __forceinline__ void split_any(Staged x, unsigned& h,
+                                          unsigned& l) {
+  h = __float_as_uint(x.hi);
+  l = __float_as_uint(x.lo);
+}
+
+// acc += A X over one KD-deep chunk at tier T."""
+A_SPLITS = """        split3(a_at(m, ks + f.tig), ah[0], al[0]);
+        split3(a_at(m + 8, ks + f.tig), ah[1], al[1]);
+        split3(a_at(m, ks + f.tig + 4), ah[2], al[2]);
+        split3(a_at(m + 8, ks + f.tig + 4), ah[3], al[3]);"""
+B_SPLITS = """        split3(b_at(ks + f.tig, n), bh[nt][0], bl[nt][0]);
+        split3(b_at(ks + f.tig + 4, n), bh[nt][1], bl[nt][1]);"""
+# name: {file: [(text in the source, replacement)]}. The ablations measure
+# the 3xTF32 tier: where one changes the operand split, the BF16 kernels of
+# the same library keep reading plain values.
 ABLATIONS = {
     "as_built": {},
     # one mma chain over the whole contraction: no fresh accumulator per
@@ -43,74 +70,97 @@ ABLATIONS = {
     "no_promotion": {
         "mlp_mma.cuh": [("""    Acc part;
     zero_acc(part);
-    mma_chunk<KC>(
-        part, f, M,""", """    mma_chunk<KC>(
-        acc, f, M,"""), ("""          split3(xk[kk * SA + p], h, l);
-        });
-    add_acc(acc, part);""", """          split3(xk[kk * SA + p], h, l);
-        });""")],
+    mma_chunk<T, KC>(
+        part, f, M, [&](int m, int kk) { return cur[at(m, kk)]; },
+        [&](int kk, int p) { return xk[kk * SA + p]; });
+    add_acc(acc, part);""", """    mma_chunk<T, KC>(
+        acc, f, M, [&](int m, int kk) { return cur[at(m, kk)]; },
+        [&](int kk, int p) { return xk[kk * SA + p]; });""")],
         "mlp_train.cu": [("""    Acc part;
     zero_acc(part);
-    mma_chunk<KW>(
-        part, f, out - o0,""", """    mma_chunk<KW>(
-        acc, f, out - o0,"""), ("""          split3(b[i * SWB + kk], h, lo);
-        });
-    add_acc(acc, part);""", """          split3(b[i * SWB + kk], h, lo);
-        });""")],
+    mma_chunk<TA, KW>(
+        part, f, out - o0, [&](int m, int kk) { return a[m * SWB + kk]; },
+        [&](int kk, int i) { return b[i * SWB + kk]; });
+    add_acc(acc, part);""", """    mma_chunk<TA, KW>(
+        acc, f, out - o0, [&](int m, int kk) { return a[m * SWB + kk]; },
+        [&](int kk, int i) { return b[i * SWB + kk]; });""")],
     },
     # one TF32 pass (hi * hi) instead of three: what two thirds of the mma
-    # cost, with the rounding of the lo halves they alone use
+    # cost, with the rounding of the lo halves they alone use (not the bf16
+    # tier: TF32 operands keep 10 mantissa bits, bf16 ones 7)
     "one_pass": {"mlp_mma.cuh": [
-        (THREE_PASSES, "        mma_tf32(acc[mt][nt], ah, bh[nt]);")]},
+        (THREE_PASSES, "          mma_tf32(acc[mt][nt], ah, bh[nt]);")]},
     # each weight chunk split once, as it lands, into hi (in place) and lo
     # (one more ring slot) by the whole block, behind one more barrier; the
     # warps then read the halves instead of splitting as they read
     "split_at_staging": {"mlp_mma.cuh": [
         ("constexpr int RING = NSLOT * SLOT;",
          "constexpr int RING = (NSLOT + 1) * SLOT;"),
+        ("// acc += A X over one KD-deep chunk at tier T.", STAGED),
+        (A_SPLITS, A_SPLITS.replace("split3(", "split_any(")),
         ("    const float* cur = ring + (c % NSLOT) * SLOT;\n",
          """    float* cur = ring + (c % NSLOT) * SLOT;
-    unsigned* lo_s = reinterpret_cast<unsigned*>(ring + NSLOT * SLOT);
-    for (int i = threadIdx.x; i < (TRANS ? KC * ST : Mr * SW); i += NT) {
-      unsigned h;
-      split3(cur[i], h, lo_s[i]);
-      cur[i] = __uint_as_float(h);
+    float* lo_s = ring + NSLOT * SLOT;
+    if constexpr (T == TF32X3) {
+      for (int i = threadIdx.x; i < (TRANS ? KC * ST : Mr * SW); i += NT) {
+        unsigned h, l;
+        split3(cur[i], h, l);
+        cur[i] = __uint_as_float(h);
+        lo_s[i] = __uint_as_float(l);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 """),
-        ("          split3(cur[at(m, kk)], h, l);",
-         "          h = __float_as_uint(cur[at(m, kk)]);\n"
-         "          l = lo_s[at(m, kk)];")]},
+        ("        part, f, M, [&](int m, int kk) { return cur[at(m, kk)]; },",
+         """        part, f, M,
+        [&](int m, int kk) {
+          if constexpr (T == TF32X3)
+            return Staged{cur[at(m, kk)], lo_s[at(m, kk)]};
+          else
+            return cur[at(m, kk)];
+        },""")]},
     # the same for the contraction's factor chunks, into two more slots
-    "split_contraction_at_staging": {"mlp_train.cu": [
-        ("const size_t wb_bytes = 2 * 2 * BT * SWB * sizeof(float);",
-         "const size_t wb_bytes = 4 * 2 * BT * SWB * sizeof(float);"),
-        ("""    const float* b = a + BT * SWB;
+    "split_contraction_at_staging": {
+        "mlp_mma.cuh": [
+            ("// acc += A X over one KD-deep chunk at tier T.", STAGED),
+            (A_SPLITS, A_SPLITS.replace("split3(", "split_any(")),
+            (B_SPLITS, B_SPLITS.replace("split3(", "split_any("))],
+        "mlp_train.cu": [
+            ("const size_t wb_bytes = 2 * 2 * BT * SWB * sizeof(float);",
+             "const size_t wb_bytes = 4 * 2 * BT * SWB * sizeof(float);"),
+            ("""    const float* b = a + BT * SWB;
     Acc part;
     zero_acc(part);
-    mma_chunk<KW>(
-        part, f, out - o0,
-        [&](int m, int kk, unsigned& h, unsigned& lo) {
-          split3(a[m * SWB + kk], h, lo);
-        },
-        [&](int kk, int i, unsigned& h, unsigned& lo) {
-          split3(b[i * SWB + kk], h, lo);
-        });""", """    const float* b = a + BT * SWB;
-    unsigned* hs = reinterpret_cast<unsigned*>(ring + 2 * SLOT2);
-    unsigned* ls = hs + SLOT2;
-    for (int q = threadIdx.x; q < SLOT2; q += NT) split3(a[q], hs[q], ls[q]);
-    __syncthreads();
+    mma_chunk<TA, KW>(
+        part, f, out - o0, [&](int m, int kk) { return a[m * SWB + kk]; },
+        [&](int kk, int i) { return b[i * SWB + kk]; });""",
+             """    const float* b = a + BT * SWB;
+    float* hs = ring + 2 * SLOT2;
+    float* ls = hs + SLOT2;
+    if constexpr (TA == TF32X3) {
+      for (int q = threadIdx.x; q < SLOT2; q += NT) {
+        unsigned h, l;
+        split3(a[q], h, l);
+        hs[q] = __uint_as_float(h);
+        ls[q] = __uint_as_float(l);
+      }
+      __syncthreads();
+    }
     Acc part;
     zero_acc(part);
-    mma_chunk<KW>(
+    mma_chunk<TA, KW>(
         part, f, out - o0,
-        [&](int m, int kk, unsigned& h, unsigned& lo) {
-          h = hs[m * SWB + kk];
-          lo = ls[m * SWB + kk];
+        [&](int m, int kk) {
+          if constexpr (TA == TF32X3)
+            return Staged{hs[m * SWB + kk], ls[m * SWB + kk]};
+          else
+            return a[m * SWB + kk];
         },
-        [&](int kk, int i, unsigned& h, unsigned& lo) {
-          h = hs[(BT + i) * SWB + kk];
-          lo = ls[(BT + i) * SWB + kk];
+        [&](int kk, int i) {
+          if constexpr (TA == TF32X3)
+            return Staged{hs[(BT + i) * SWB + kk], ls[(BT + i) * SWB + kk]};
+          else
+            return b[i * SWB + kk];
         });""")]},
     # the forward epilogues without softplus / sigmoid
     "no_activation_math": {
@@ -138,12 +188,14 @@ ABLATIONS = {
     # (stream-ordered allocation in the launch): each layer's ring streams
     # the pack (twice the L2 bytes; two 64 KB slots) and each warp reads its
     # split fragments as two 16-byte loads instead of splitting four values
+    # (the BF16 instantiation takes the same 3xTF32 products; not timed)
     "presplit_weights": {"mlp_value.cu": [
         ("  return (size_t)RING + (size_t)(ts.ar + ts.xr) * SA + 4 * P;",
          "  return (size_t)4 * WMAX * KC + (size_t)(ts.ar + ts.xr) * SA + "
          "4 * P;"),
         ("  float* act = ring + RING;", "  float* act = ring + 4 * WMAX * KC;"),
-        ("""__global__ void __launch_bounds__(NT, 1)
+        ("""template <Tier T>
+__global__ void __launch_bounds__(NT, 1)
     mlp_value_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, float* udf, Layout lay,
                      size_t ld) {""",
@@ -173,7 +225,8 @@ __global__ void split_weights_kernel(const float* __restrict__ W,
   }
 }
 
-// tc_product<false> from a layer's chunks of the pack, in a two-slot ring
+// tc_product<TF32X3, false> from a layer's chunks of the pack, in a
+// two-slot ring
 __device__ __forceinline__ void split_product(const float* pk, int M, int K,
                                               const float* xs, float* ring,
                                               Acc& acc) {
@@ -226,6 +279,7 @@ __device__ __forceinline__ void split_product(const float* pk, int M, int K,
   __syncthreads();
 }
 
+template <Tier T>
 __global__ void __launch_bounds__(NT, 1)
     mlp_value_kernel(const float* pts, const float* __restrict__ W,
                      const float* __restrict__ B, float* udf,
@@ -233,23 +287,23 @@ __global__ void __launch_bounds__(NT, 1)
                      size_t ld) {"""),
         ("  const float* h = X;\n",
          "  const float* h = X;\n  int q = 0;  // the layer's first chunk\n"),
-        ("    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, "
-         "ring, acc);",
+        ("""    tc_product<T, false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring,
+                         acc);""",
          "    split_product(pack + (size_t)q * CH, M, lay.in[l], h, ring, "
          "acc);\n    q += (lay.in[l] + KC - 1) / KC;"),
-        ("""  mlp_value_kernel<<<(unsigned)(n / P), NT, bytes, (cudaStream_t)stream>>>(
+        ("""  mlp_value_kernel<T><<<(unsigned)(n / P), NT, bytes, stream>>>(
       pts, W, B, udf, lay, (size_t)n);
   return (int)cudaGetLastError();""", """  int nq = 0;
   for (int l = 0; l < lay.L - 1; ++l) nq += (lay.in[l] + KC - 1) / KC;
   float* pack = nullptr;
   const cudaError_t e2 = cudaMallocAsync(
-      (void**)&pack, (size_t)nq * CH * sizeof(float), (cudaStream_t)stream);
+      (void**)&pack, (size_t)nq * CH * sizeof(float), stream);
   if (e2 != cudaSuccess) return (int)e2;
-  split_weights_kernel<<<(nq * WMAX * KC + 255) / 256, 256, 0,
-                         (cudaStream_t)stream>>>(W, pack, lay, nq);
-  mlp_value_kernel<<<(unsigned)(n / P), NT, bytes, (cudaStream_t)stream>>>(
+  split_weights_kernel<<<(nq * WMAX * KC + 255) / 256, 256, 0, stream>>>(
+      W, pack, lay, nq);
+  mlp_value_kernel<T><<<(unsigned)(n / P), NT, bytes, stream>>>(
       pts, W, B, udf, pack, lay, (size_t)n);
-  cudaFreeAsync(pack, (cudaStream_t)stream);
+  cudaFreeAsync(pack, stream);
   return (int)cudaGetLastError();""")]},
     # #3's hidden weights as ONE stream of 32-step chunks over all layers
     # through a three-slot ring, two chunks ahead of the warps: the next
@@ -285,8 +339,8 @@ __global__ void __launch_bounds__(NT, 1)
   load_next();
   Acc acc;
   const float* h = X;"""),
-        ("    tc_product<false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, "
-         "ring, acc);", """    zero_acc(acc);
+        ("""    tc_product<T, false>(W + lay.off[l], lay.ldw, M, lay.in[l], h, ring,
+                         acc);""", """    zero_acc(acc);
     for (int k0 = 0; k0 < lay.in[l]; k0 += KC) {
       cp_wait<1>();
       __syncthreads();
@@ -296,14 +350,9 @@ __global__ void __launch_bounds__(NT, 1)
       const float* xk = h + (size_t)k0 * SA;
       Acc part;
       zero_acc(part);
-      mma_chunk<KC>(
-          part, f, M,
-          [&](int m, int kk, unsigned& hi, unsigned& lo) {
-            split3(cur[m * SW + kk], hi, lo);
-          },
-          [&](int kk, int p, unsigned& hi, unsigned& lo) {
-            split3(xk[kk * SA + p], hi, lo);
-          });
+      mma_chunk<T, KC>(
+          part, f, M, [&](int m, int kk) { return cur[m * SW + kk]; },
+          [&](int kk, int p) { return xk[kk * SA + p]; });
       add_acc(acc, part);
     }
     __syncthreads();""")]},

@@ -25,8 +25,11 @@ the run exactly where it stopped (`--stop_at`, `--is_continue`), so a run
 longer than one sitting can be taken in parts. Its train_wall_s sums the
 parts. The training dispatches the conf's chain of steps a call (500 for
 confs/ABC.conf) as CUDA graph replays; each part's `launches` counts the
-kernels' runs, replays included (`graph_launches` holds the capture's and
-the replays' shares).
+kernels' runs by "<kernel>/<tier>", replays included (`graph_launches`
+holds the capture's and the replays' shares). The conf's matmul tiers
+apply as it sets them (confs/ABC.conf: the training field query and the
+up-sampler at the bf16 tier "default", extraction at "high"); the report's
+`tiers` gives what the training run resolved them to.
 """
 
 from __future__ import annotations
@@ -132,6 +135,7 @@ def main() -> dict:
     (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
         runner.timeline[-1]
     parts.append({"from": start, "to": int(runner.state.step),
+                  "tiers": runner.tiers,
                   "wall_s": time.time() - t0,
                   # from the first fetch to the last, validations included
                   "ms_per_step": 1e3 * (tb - ta) / max(s1 - s0, 1),
@@ -171,6 +175,7 @@ def main() -> dict:
                 "overridden)",
         "seed": SEED or 42,
         "iters": end_iter,
+        "tiers": parts[-1]["tiers"],
         "train_wall_s": round(train_wall, 1),
         "extract_wall_s": round(extract_wall, 1),
         "gates": gates,

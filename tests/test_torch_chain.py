@@ -194,7 +194,8 @@ def test_chained_steps_match_the_jax_steps():
         jr.RenderConfig(sampler_precision="highest", **render_kw), jucfg, 1,
         donate=False, sample_fn=lambda s, p, k: (jbatch, jnp.int32(0)))
     chained = tstep.build_chained_train_step(
-        tstep.TrainConfig(**train_kw), tr.RenderConfig(**render_kw), tucfg,
+        tstep.TrainConfig(**train_kw),
+        tr.RenderConfig(sampler_precision="highest", **render_kw), tucfg,
         1, 3, sample_fn=lambda s, p: (tbatch, 0))
     jrows = []
     for _ in range(3):

@@ -6,6 +6,7 @@ where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -224,6 +225,99 @@ def test_cuda_value_kernel_matches_plain(cuda, multires):
     assert torch.equal(u, again)
 
 
+# The bf16 tier ("default") against the plain versions at that tier: the
+# same operands rounded, but fp32 sums in another order flip a few bf16
+# roundings (one bf16 ulp). Measured on the CPU with these nets (fp32 against
+# fp64 sums of the same tier, 4,096 points): udf 1.1e-3 (d_hidden 64) and
+# 2.3e-3 (ABC width), gradient 1.7e-3 / 5.4e-3, the worst W-bar block
+# 2.7e-3 / 7.1e-3, of the block's largest. Held to 2e-2 per block, and by
+# mean error at least BF16_SEPARATION times nearer the bf16 plain version
+# than the fp32 one (measured 3.9x for #2 with an fp32 primal and a bf16
+# adjoint at ABC width, 12x to 1000x elsewhere).
+BF16_RTOL = 2e-2
+BF16_SEPARATION = 2.0
+
+
+def mean_rel(a, b) -> float:
+    return float((a - b).abs().mean() / (b.abs().max() + 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_bf16_tier_matches_plain(cuda, name):
+    """Every kernel at the bf16 tier, and #2 at an fp32 primal with a bf16
+    adjoint, against its plain version at the same tier per block, and
+    nearer it than the fp32 plain version; one launch counted each, under
+    its tier."""
+    base = CFGS[name]
+    x, ubar, gbar = points(4096, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(base,
+                                                                 cuda), base))
+    fp32 = dataclasses.replace(base, precision="high")
+
+    def held(got, want, want32):
+        # separation over the worst block: a block that no product feeds
+        # (the head's bias gradient, a sum of ubar * dy) is the same at
+        # every tier
+        for g, wt in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            assert max_rel(g, wt) < BF16_RTOL
+        assert BF16_SEPARATION * max(
+            mean_rel(g, wt) for g, wt in zip(got, want)) < max(
+            mean_rel(g, w32) for g, w32 in zip(got, want32))
+
+    def bwd_blocks(out):
+        return [t for layer in tq.unpack_weights(*out, base) for t in layer]
+
+    bf = dataclasses.replace(base, precision="default")
+    before = dict(tq.value_and_grad.tier_launches)
+    held(tq.value_and_grad(x, w, b, bf), tq.value_and_grad_plain(x, w, b, bf),
+         tq.value_and_grad_plain(x, w, b, fp32))
+    assert tq.value_and_grad.tier_launches["bf16"] == before["bf16"] + 1
+    assert tq.value_and_grad.tier_launches["3xtf32"] == before["3xtf32"]
+    before = tq.value.tier_launches["bf16"]
+    held([tq.value(x, w, b, bf)], [tq.value_plain(x, w, b, bf)],
+         [tq.value_plain(x, w, b, fp32)])
+    assert tq.value.tier_launches["bf16"] == before + 1
+    for cfg, key in ((bf, "bf16"), (dataclasses.replace(
+            fp32, bwd_precision="default"), "3xtf32+bf16")):
+        before = tt.train_bwd.tier_launches[key]
+        held(bwd_blocks(tt.train_bwd(x, w, b, ubar, gbar, cfg)),
+             bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar, cfg)),
+             bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar, fp32)))
+        assert tt.train_bwd.tier_launches[key] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
+    """At ABC width and the training step's N = 116,736 points: #1a and #2
+    at the bf16 tier against their plain versions per block (BF16_RTOL);
+    the sliced extraction query at the bf16 tier over two slices, against
+    the plain version and bit-identical to one launch; two launches of each
+    training kernel bit-identical."""
+    cfg = dataclasses.replace(CFGS["abc"], precision="default")
+    x, ubar, gbar = points(116_736, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    runs = [list(tq.value_and_grad(x, w, b, cfg)) + [
+        t for layer in tq.unpack_weights(*tt.train_bwd(x, w, b, ubar, gbar,
+                                                       cfg), cfg)
+        for t in layer] for _ in range(2)]
+    torch.cuda.synchronize()
+    want = list(tq.value_and_grad_plain(x, w, b, cfg)) + [
+        t for layer in tq.unpack_weights(*tt.train_bwd_plain(
+            x, w, b, ubar, gbar, cfg), cfg) for t in layer]
+    for g, again, wt in zip(*runs, want):
+        assert torch.equal(g, again)
+        assert max_rel(g, wt) < BF16_RTOL
+    xs, _, _ = points(300_032, cuda)
+    us, gs = tq.value_and_grad_sliced(xs, w, b, cfg)
+    uu, gu = tq.value_and_grad(xs, w, b, cfg)
+    assert torch.equal(us, uu) and torch.equal(gs, gu)
+    up, gp = tq.value_and_grad_plain(xs, w, b, cfg)
+    assert max_rel(us, up) < BF16_RTOL and max_rel(gs, gp) < BF16_RTOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
@@ -321,11 +415,12 @@ def test_cuda_graph_steps_equal_eager_steps(cuda, tmp_path, upsampling_type):
     assert torch.equal(got, want)
     _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
     # the capture counted one launch of each training kernel that the
-    # graph holds; 7 replays ran them
-    assert chained.captured_launches == {
-        "mlp_value_and_grad": 1, "mlp_train_bwd": 1, "mlp_value": 0}
-    assert chained.replayed_launches == {
-        "mlp_value_and_grad": 7, "mlp_train_bwd": 7, "mlp_value": 0}
+    # graph holds, at the conf's bf16 tier; 7 replays ran them
+    assert graphed.tiers["field"] == graphed.tiers["adjoint"] == "default"
+    assert {k: v for k, v in chained.captured_launches.items() if v} == {
+        "mlp_value_and_grad/bf16": 1, "mlp_train_bwd/bf16": 1}
+    assert {k: v for k, v in chained.replayed_launches.items() if v} == {
+        "mlp_value_and_grad/bf16": 7, "mlp_train_bwd/bf16": 7}
     chained.release()
 
 

@@ -74,7 +74,7 @@ def rcfgs(**kw):
                 perturb=0.0)
     base.update(kw)
     return (jr.RenderConfig(sampler_precision="highest", **base),
-            tr.RenderConfig(**base))
+            tr.RenderConfig(sampler_precision="highest", **base))
 
 
 def test_render_config_matches():
@@ -478,7 +478,8 @@ def test_train_step_with_mix_matches():
         jr.RenderConfig(sampler_precision="highest", **render_kw), jucfg, 1,
         donate=False, sample_fn=lambda s, p, k: (jbatch, jnp.int32(0)))
     tfn = tstep.build_train_step(
-        tstep.TrainConfig(**train_kw), tr.RenderConfig(**render_kw), tucfg, 1,
+        tstep.TrainConfig(**train_kw),
+        tr.RenderConfig(sampler_precision="highest", **render_kw), tucfg, 1,
         sample_fn=lambda s, p: (tbatch, 0))
     jst, jm = jfn(jst, jpool)
     tm = tfn(tst, None)

@@ -116,7 +116,7 @@ def matched_steps():
     render_kw = dict(n_samples=8, n_importance=5, up_sample_steps=5,
                      perturb=0.0)
     jrcfg = jr.RenderConfig(sampler_precision="highest", **render_kw)
-    trcfg = tr.RenderConfig(**render_kw)
+    trcfg = tr.RenderConfig(sampler_precision="highest", **render_kw)
     # learning_rate 0 keeps the scalars (variance, beta, gamma) in place:
     # their float32 gradients are mostly cancellation noise at this size
     # (SCALAR_GRAD_ATOL), and Adam would turn that noise into lr-sized
