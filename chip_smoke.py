@@ -47,7 +47,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
   6. regress the ABC-width field onto the analytic UDF of the cube's 12
      edges, save it as the run's checkpoint and run
      `emap_tpu_torch.cli.main(... --mode extract_edge)` with the ABC conf's
-     edge_extraction block unchanged, after counting, for each candidate
+     edge_extraction block (unchanged but for one fit draw a threshold in
+     place of 4: a cut of depth that keeps the run inside half its time
+     with phases 10 and 11), after counting, for each candidate
      threshold, the grid points whose near-surface masks differ between the
      grid value kernel and its plain version; check that the extraction kernels
      launched as often as the candidate counts reckon, that the four result
@@ -69,9 +71,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
      `bwd_precision = "default"` through #2 at that mixed pair;
      `precision = "default"` extracts phase 6's field through the bf16
      grid and sweep kernels (one threshold, one fit), whose sliced
-     value-and-gradient query is then held against its plain version.
+     value-and-gradient query is then held against its plain version;
+ 10. confs/Replica.conf's field at full width (multires 6: the encoded
+     input 39 wide, padded to 40; the skip layer takes 217 + 39 inputs):
+     the rows of phase 3 at that width, at both tiers (the grid value
+     kernel at one GRID_CHUNK of a 256^3 pass), then REPLICA_ITER steps of
+     the conf through the CLI on a PidiNet cube scene (a warm-up step, a
+     capture and replays at chain 5) with one validation, its launches
+     reckoned and its first step held against plain autograd as phase 4's
+     is, then the conf's extraction device stages (256^3 grid, the
+     6-threshold menu, point shift, line directions) on that field, their
+     launches reckoned from their trace;
+ 11. `emap_tpu_torch.cli.main(... --mode extract_edge)` with
+     confs/DTU.conf's edge_extraction block unchanged (256^3 grid, 4
+     launches of the grid value kernel a pass; 6 thresholds; iters 1; one
+     fit a threshold; the visibility filter over the scene's 24 PidiNet
+     frames) on a cube field regressed with a loss relative to the
+     distance (DTU_FIXTURE_REL), whose valley along the edges the menu's
+     0.005 threshold needs: the launches reckoned from the
+     trace, the stage times, the peak device memory, the primitives the
+     filter kept and dropped, and the edges scored against the cube's as
+     in phase 7, F@20mm at least F20_MIN.
 Each kernel row's `launches` is its kernel and tier's count in the run of
-the path that runs it: the main path (phases 4 and 6) or a phase 9 run.
+the path that runs it: the main path (phases 4 and 6), a phase 9 run, or
+the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
+and ".../256^3"; phase 10's rows of tiers no path of the conf runs are
+printed and held, not listed).
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script fails.
@@ -175,6 +200,18 @@ F20_MIN = 0.95
 GRAPH_CHAIN = 20
 # Phase 9: steps of each training route's run (one chained call).
 ROUTE_ITER = 5
+# Phase 10: steps of the Replica conf's run (chain 5).
+REPLICA_ITER = 10
+# Phase 11's fixture: the cube field regressed with the squared error
+# relative to (distance + DTU_FIXTURE_REL). DTU.conf's menu reaches down to
+# a 0.005 threshold on a 256^3 grid, which needs the field's valley within
+# 0.005 of 0 along the edges. Regressed by the plain squared error (phase
+# 6's fixture), the valley rises above it in places and the 0.005 cloud
+# breaks up: F@20mm 0.859 on an H100.
+DTU_FIXTURE_REL = 0.02
+# One GRID_CHUNK of a 256^3 grid pass (extract/pointcloud.py), the launch
+# shape of the DTU and Replica confs' grid.
+GRID_CHUNK_N = 1 << 22
 
 
 def smi_line() -> str:
@@ -321,11 +358,12 @@ def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
     plain_ms, want = time_ms(lambda: plain(*args, ucfg), 2)
     got, want = blocks(got), blocks(want)
     bf16 = "default" in tiers
+    tol = BF16_KERNEL_RTOL if bf16 else KERNEL_RTOL
     if bf16:
         want32 = blocks(plain(*args, at_tier(ucfg, ("high", ""))))
         _, rel32, worst32 = errors(got, want32)
         own, fp32 = mean_error(got, want), mean_error(got, want32)
-        got, flips = head_signs(got, want)
+    got, flips = head_signs(got, want, tol)
     abs_err, rel_err, worst = errors(got, want)
     t_ops = sum(f / (BF16_PEAK if t == "default" else FP32_PEAK)
                 for f, t in zip(flops, tiers))
@@ -340,16 +378,15 @@ def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
         "max_abs_err": abs_err, "max_rel_err": rel_err, "worst_block": worst,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "n": args[0].shape[1],
+        "library_ms": None, "n": args[0].shape[1], "head_sign_flips": flips,
     }
-    tol = BF16_KERNEL_RTOL if bf16 else KERNEL_RTOL
     line = (f"kernel {name}/{tier}: max abs err {abs_err:.3e}, max rel err "
             f"{rel_err:.3e} in block {worst} of {len(want)} (tolerance "
-            f"{tol:g})")
+            f"{tol:g}); {flips} points of opposite head sign")
     if bf16:
         row.update(max_rel_err_vs_fp32=rel32, mean_err=own,
-                   mean_err_vs_fp32=fp32, head_sign_flips=flips)
-        line += (f"; {flips} points of opposite head sign; against the fp32 "
+                   mean_err_vs_fp32=fp32)
+        line += (f"; against the fp32 "
                  f"plain version {rel32:.3e} in block {worst32}; mean err "
                  f"{own:.3e}, against fp32 {fp32:.3e} (separation "
                  f"{BF16_SEPARATION:g})")
@@ -372,21 +409,23 @@ def kernel_row(name, kern, plain, blocks, args, ucfg, src, replaces,
     return row
 
 
-def head_signs(got: dict, want: dict) -> tuple:
+def head_signs(got: dict, want: dict, tol: float) -> tuple:
     """(got with its spatial gradient's sign taken from want at the points
     where the two have opposite signs, the count of those points). The abs
     head's d|y0|/dy0 = sign(y0) turns over at the surface, so where y0 lies
-    within the bf16 tier's roundoff of 0 the kernel and its plain version
-    may take opposite signs: the gradient is held up to that sign, and a
-    point may differ in sign only where its udf is within the udf bound
-    (BF16_KERNEL_RTOL of the block's largest) of 0."""
+    within the tier's roundoff of 0 the kernel and its plain version may
+    take opposite signs (at bf16 a flip's size; at 3xTF32 fp32 roundoff,
+    which a few million points of a field through the surface reach): the
+    gradient is held up to that sign, and a point may differ in sign only
+    where its udf is within the tier's udf bound (`tol` of the block's
+    largest) of 0."""
     import torch
 
     if "grad" not in want:
         return got, 0
     g, w = got["grad"], want["grad"]
     flip = (g + w).abs().amax(0) < (g - w).abs().amax(0)
-    far = want["udf"][flip] > BF16_KERNEL_RTOL * float(want["udf"].max())
+    far = want["udf"][flip] > tol * float(want["udf"].max())
     check(not bool(far.any()), f"{int(far.sum())} points take the opposite "
           f"head sign away from the surface")
     return dict(got, grad=torch.where(flip, -g, g)), int(flip.sum())
@@ -449,13 +488,13 @@ def bwd_flops(ucfg) -> tuple:
     return primal, mlp_train.train_bwd_flops(ucfg) - primal
 
 
-def kernel_phase(ucfg, n: int) -> list:
+def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
     """The training kernels at the step's shape and the grid value kernel
-    at its two launch shapes, each at each of its KERNEL_TIERS against its
-    plain version at that tier."""
+    at each of `grid_shapes` (points a launch: a 128^3 pass, GRID_CHUNK of a
+    256^3 pass), each at each of its KERNEL_TIERS against its plain version
+    at that tier; the rows in that order."""
     import torch
 
-    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK
     from emap_tpu_torch.kernels import mlp_query, mlp_train
 
     w, b = packed_weights(ucfg)
@@ -464,8 +503,7 @@ def kernel_phase(ucfg, n: int) -> list:
     ubar = torch.randn(1, n, generator=gen, device="cuda")
     gbar = torch.zeros(8, n, device="cuda")
     gbar[:3] = torch.randn(3, n, generator=gen, device="cuda")
-    grid_x = raw_points(gen, GRID_N)
-    chunk_x = raw_points(gen, GRID_CHUNK)
+    grids = [raw_points(gen, count) for count in grid_shapes]
 
     def value_blocks(out):
         return {"udf": out}
@@ -510,15 +548,12 @@ def kernel_phase(ucfg, n: int) -> list:
             "emap_tpu/kernels/mlp_train.py:417",
             f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
             tuple(f * n for f in bwd_flops(cfg))))
-    for tier in KERNEL_TIERS["mlp_value"]:
-        cfg = at_tier(ucfg, tier)
-        same_bits("mlp_value", lambda *a: (mlp_query.value(*a),),
-                  (grid_x, w, b), cfg)
-        rows.append(value_row(grid_x, cfg))
-        # one GRID_CHUNK of a 256^3 pass: printed beside its bounds; the
-        # kernels line keeps the ABC pass, the shape this run's extraction
-        # launches
-        value_row(chunk_x, cfg)
+    for grid_x in grids:
+        for tier in KERNEL_TIERS["mlp_value"]:
+            cfg = at_tier(ucfg, tier)
+            same_bits("mlp_value", lambda *a: (mlp_query.value(*a),),
+                      (grid_x, w, b), cfg)
+            rows.append(value_row(grid_x, cfg))
     return rows
 
 
@@ -562,6 +597,9 @@ def write_run_conf(tmp: str) -> str:
     conf["train.report_freq"] = 5
     conf["train.save_freq"] = 10
     conf["train.val_freq"] = END_ITER
+    # phase 6 at one fit draw a threshold (the conf: 4), to keep the run
+    # inside its time with phases 10 and 11
+    conf["edge_extraction.fit_draws"] = 1
     path = os.path.join(tmp, "ABC_smoke.conf")
     with open(path, "w") as f:
         f.write(conf.to_hocon())
@@ -798,11 +836,14 @@ def graph_phase(runner, smi: str, eager_host_calls: float) -> None:
         got = torch.cat([chained(graph_st, pool) for _ in range(2)])
         torch.cuda.synchronize()
         leaves = differing(state_snapshot(graph_st), state_snapshot(eager_st))
-        bad_rows = sorted({int(i) for i in torch.nonzero(got != want)[:, 1]})
+        bad = torch.nonzero(got != want)
+        bad_rows = sorted({int(i) for i in bad[:, 1]})
         print(f"graph {kind}: {2 * GRAPH_CHAIN} steps, eager vs a warm-up "
               f"step + {2 * GRAPH_CHAIN - 1} replays: differing state "
               f"tensors {leaves or 'none'}; differing metric columns "
-              f"{bad_rows or 'none'}; capture counted "
+              f"{bad_rows or 'none'}"
+              + (f" from step {int(bad[:, 0].min())} of the chained calls"
+                 if len(bad) else "") + "; capture counted "
               f"{chained.captured_launches}, replays ran "
               f"{chained.replayed_launches}", flush=True)
         check(not leaves and not bad_rows, f"{kind}: graph replays differ "
@@ -900,10 +941,13 @@ def cube_edge_distance(pts, edges):
     return torch.linalg.norm(pts[:, None] - closest, dim=-1).min(dim=1)[0]
 
 
-def regress_cube_field(ucfg):
+def regress_cube_field(ucfg, rel: float = 0.0):
     """The ABC-width field regressed onto the analytic UDF of the cube's 12
     edges by plain autograd and Adam: uniform samples in [-1, 1]^3 and
-    samples within 0.1 of the edges, from a seed."""
+    samples within 0.1 of the edges, from a seed. The loss is the mean
+    squared error, or with `rel` > 0 the mean squared error relative to
+    (distance + rel), which spends the net's capacity on the valley along
+    the edges (phase 11)."""
     import torch
 
     from emap_tpu_torch.data.synthetic import cube_edges
@@ -928,8 +972,9 @@ def regress_cube_field(ucfg):
             4096, 3, generator=gen, device="cuda") * torch.rand(
             4096, 1, generator=gen, device="cuda")
         pts = torch.cat([uni, near])
-        loss = torch.mean((udf_value(params, pts, ucfg)
-                           - cube_edge_distance(pts, edges)) ** 2)
+        dist = cube_edge_distance(pts, edges)
+        err = udf_value(params, pts, ucfg) - dist
+        loss = torch.mean((err / (dist + rel) if rel else err) ** 2)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -969,9 +1014,9 @@ def mask_disagreement(params, ucfg, res: int, thresholds) -> None:
     torch.cuda.empty_cache()
 
 
-def extraction_launches(runner, ucfg, n_jitter: int, wall: float,
+def extraction_launches(trace: list, ucfg, n_jitter: int, wall: float,
                         smi: str) -> int:
-    """Phase 6's and 9's reckoning of an extraction's launches at ucfg's
+    """Phases 6, 9, 10 and 11's reckoning of an extraction's launches at ucfg's
     tier from its trace: one value launch per grid chunk and per probe
     certification; per feature batch of m live candidates one
     value-and-gradient launch, plus one per SLICE_CAP of its m * sampling_N
@@ -982,7 +1027,6 @@ def extraction_launches(runner, ucfg, n_jitter: int, wall: float,
     from emap_tpu_torch.extract.pointcloud import GRID_CHUNK, POINT_BATCH
     from emap_tpu_torch.kernels import mlp_query
 
-    trace = runner.extract_trace
     launches = ran()
     value_key = f"mlp_value/{tier_name('mlp_value', ucfg)}"
     vg_key = f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"
@@ -1013,9 +1057,10 @@ def extraction_launches(runner, ucfg, n_jitter: int, wall: float,
               + (f", points {[t['points'] for t in ts]}"
                  if ts and "points" in ts[0] else ""), flush=True)
     fit_s = sum(t["seconds"] for t in stages.get("fit", []))
-    print(f"extract: host fits {fit_s:.1f} s, selector scoring "
-          f"{sum(t['seconds'] for t in stages['fit_score']) - fit_s:.1f} s",
-          flush=True)
+    if "fit_score" in stages:
+        print(f"extract: host fits {fit_s:.1f} s, selector scoring "
+              f"{sum(t['seconds'] for t in stages['fit_score']) - fit_s:.1f}"
+              f" s", flush=True)
     print(f"extract: {wall:.1f} s through emap_tpu_torch.cli (set-up "
           f"included) on {smi}; launches "
           f"{ {k: v for k, v in launches.items() if v} }, reckoned "
@@ -1127,7 +1172,8 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
           flush=True)
     del a, gram
 
-    linedir_n = extraction_launches(runner, ucfg, n_jitter, wall, smi)
+    linedir_n = extraction_launches(runner.extract_trace, ucfg, n_jitter,
+                                    wall, smi)
     row_of[f"mlp_value/{tier_name('mlp_value', ucfg)}"]["launches"] = (
         launches[f"mlp_value/{tier_name('mlp_value', ucfg)}"])
 
@@ -1300,8 +1346,8 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
           "run at the pinned tier")
     ucfg = runner.ucfg
     linedir_n = extraction_launches(
-        runner, ucfg, runner.conf.get_int("edge_extraction.sampling_N"), wall,
-        smi)
+        runner.extract_trace, ucfg,
+        runner.conf.get_int("edge_extraction.sampling_N"), wall, smi)
     print(f"route extract_default: largest line-direction call {linedir_n} "
           f"points", flush=True)
     row_of["mlp_value/bf16"]["launches"] = launches["mlp_value/bf16"]
@@ -1319,6 +1365,250 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
     row = sliced_row(ucfg, sweep_n)
     row["launches"] = launches["mlp_value_and_grad/bf16"]
     return row
+
+
+def pidinet_scene(tmp: str) -> str:
+    """Phases 10 and 11's scene: phase 4's cube and cameras with PidiNet
+    edge maps, the detector confs/DTU.conf and confs/Replica.conf read (the
+    visibility filter reads them as they are, without DexiNed's
+    inversion)."""
+    from emap_tpu_torch.data import make_synthetic_scene
+
+    data_dir = os.path.join(tmp, "data_pidinet")
+    t0 = time.perf_counter()
+    make_synthetic_scene(data_dir, scan="cube000", n_views=24, H=400, W=400,
+                         detector="PidiNet")
+    print(f"PidiNet scene written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return data_dir
+
+
+def conf_copy(name: str, tmp: str, data_dir: str, **overrides) -> str:
+    """A copy of confs/<name>.conf on the PidiNet scene, in an experiment
+    directory of its own, with `far` 4.5 (the scene's cameras orbit at
+    radius 2.2, as in scripts/torch_run_production.py) and `overrides`."""
+    from emap_tpu_torch import config
+
+    conf = config.parse_file(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "confs", f"{name}.conf"))
+    conf["general.base_exp_dir"] = os.path.join(tmp, f"{name}_exp")
+    conf["general.recording"] = []
+    conf["dataset.data_dir"] = data_dir
+    conf["dataset.scan"] = "cube000"
+    conf["dataset.far"] = 4.5
+    for k, v in overrides.items():
+        conf[k] = v
+    path = os.path.join(tmp, f"{name}_smoke.conf")
+    with open(path, "w") as f:
+        f.write(conf.to_hocon())
+    return path
+
+
+def renamed(row: dict, suffix: str) -> dict:
+    row["name"] = f"{row['name']}/{suffix}"
+    return row
+
+
+def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
+    """Phase 10: confs/Replica.conf's field at full width (multires 6: the
+    encoded input is d0 = 39 wide, padded to 40; the skip layer takes
+    217 + 39 inputs). Each kernel at each of its KERNEL_TIERS against its
+    plain version at the step's N and, for the grid value kernel, one
+    GRID_CHUNK of a 256^3 pass; then REPLICA_ITER steps of the conf through
+    the CLI (chain 5: a warm-up step, a capture, replays) with one
+    validation, the first step against plain autograd, and the conf's
+    extraction device stages (256^3 grid, the 6-threshold menu, the point
+    shift and line directions) on the trained field, their launches
+    against the reckoning from their trace. Returns the rows of the
+    kernels and tiers these runs launch; the other tiers' rows are printed
+    and held, not listed."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch import cli, config
+    from emap_tpu_torch.extract import pointcloud
+    from emap_tpu_torch.fields.udf import UDFConfig
+    from emap_tpu_torch.kernels import mlp_query
+
+    path = conf_copy("Replica", tmp, data_dir, **{
+        "train.end_iter": REPLICA_ITER, "train.report_freq": 5,
+        "train.save_freq": REPLICA_ITER, "train.val_freq": REPLICA_ITER})
+    conf = config.parse_file(path)
+    rucfg = UDFConfig.from_conf(conf.get_config("model.udf_network"))
+    layout = mlp_query.kernel_layout(rucfg)
+    print(f"replica: multires {rucfg.multires}, d0 {layout[1]} padded to "
+          f"{layout[2]}, layer inputs {list(layout[7::4])}", flush=True)
+    check(rucfg.multires == 6 and layout[2] == 40,
+          f"Replica.conf's field is not multires 6 at d0p 40: {layout[:8]}")
+    rows = [renamed(r, "multires6") for r in kernel_phase(
+        rucfg, n, (GRID_CHUNK_N,))]
+    row_of = {r["name"]: r for r in rows}
+
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = cli.main(["--conf", path, "--mode", "train"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran(runner)
+    keys = train_keys(runner)
+    h, w = (runner.scene.H // runner.validate_resolution_level,
+            runner.scene.W // runner.validate_resolution_level)
+    val_chunks = -(-h * w // runner.batch_size)
+    losses = [r["loss"] for r in runner.history]
+    (s0, t_first), (s1, t_last) = runner.timeline[1], runner.timeline[-1]
+    print(f"replica: {REPLICA_ITER} steps and one validation through "
+          f"emap_tpu_torch.cli in {wall:.1f} s at the tiers {runner.tiers}; "
+          f"{1e3 * (t_last - t_first) / (s1 - s0):.2f} ms/step over steps "
+          f"{s0 + 1}-{s1} on {smi}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, {val_chunks} of "
+          f"them validation chunks; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    check(runner.tiers == {"field": "default", "adjoint": "default",
+                           "sampler": "default", "extraction": "high",
+                           "route": "kernels"},
+          f"Replica.conf resolved to the tiers {runner.tiers}")
+    check(runner.replayed_launches.get(keys["mlp_train_bwd"], 0) > 0,
+          "the Replica run did not go through the kernels and the graph")
+    check(runner.state.step == REPLICA_ITER and len(losses) == REPLICA_ITER
+          and all(map(math.isfinite, losses)),
+          f"Replica run: step {runner.state.step}, losses {losses}")
+    check(launches[keys["mlp_train_bwd"]] == REPLICA_ITER,
+          f"{keys['mlp_train_bwd']} ran {launches[keys['mlp_train_bwd']]} "
+          f"times in {REPLICA_ITER} steps")
+    check(launches[keys["mlp_value_and_grad"]] == REPLICA_ITER + val_chunks,
+          f"{keys['mlp_value_and_grad']} ran "
+          f"{launches[keys['mlp_value_and_grad']]} times, not "
+          f"{REPLICA_ITER} steps + {val_chunks} validation chunks")
+    others = {k: v for k, v in launches.items()
+              if v and k not in keys.values()}
+    check(not others, f"the Replica run launched other kernels: {others}")
+    for key in keys.values():
+        row_of[f"{key}/multires6"]["launches"] = launches[key]
+    first_step_check(path, losses[0])
+
+    # the conf's extraction device stages on the trained field
+    ee = conf.get_config("edge_extraction")
+    params = {k: {m: t.detach() for m, t in layer.items()}
+              for k, layer in runner.state.params["udf"].items()}
+    del runner
+    torch.cuda.empty_cache()
+    trace = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    clouds = pointcloud.extract_pointcloud_multi(
+        params, rucfg, ee.get_int("resolution"),
+        [float(t) for t in ee.get_list("auto_threshold")],
+        sampling_N=ee.get_int("sampling_N"),
+        sampling_delta=ee.get_float("sampling_delta"),
+        is_pointshift=ee.get_bool("is_pointshift"),
+        iters=ee.get_int("iters"),
+        is_linedirection=ee.get_bool("is_linedirection"), trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran()
+    print(f"replica: extraction device stages at {ee.get_int('resolution')}"
+          f"^3 on the {REPLICA_ITER}-step field: points by threshold "
+          f"{ {t: len(p) for t, (p, _) in clouds.items()} }, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    check(all(bool(np.isfinite(p).all()) and bool(np.isfinite(d).all())
+              for p, d in clouds.values()), "non-finite points or directions")
+    linedir_n = extraction_launches(trace, rucfg, ee.get_int("sampling_N"),
+                                    wall, smi)
+    value_key = f"mlp_value/{tier_name('mlp_value', rucfg)}"
+    row_of[f"{value_key}/multires6"]["launches"] = launches[value_key]
+    row = renamed(sliced_row(rucfg, linedir_n), "multires6")
+    row["launches"] = launches[
+        f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', rucfg)}"]
+    return [r for r in rows if r["launches"]] + [row]
+
+
+def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
+              smi: str) -> list:
+    """Phase 11: `--mode extract_edge` with confs/DTU.conf's edge_extraction
+    block unchanged (256^3 grid: 4 launches of the grid value kernel a
+    pass; 6 thresholds; iters 1; one fit a threshold; the visibility filter
+    over the 24 PidiNet frames) on the cube field regressed with the
+    relative loss (DTU_FIXTURE_REL; the DTU conf's net is the ABC conf's);
+    the launches against the reckoning from
+    the trace, the stage times, the peak device memory, the primitives the
+    filter kept and dropped; then the edges scored against the cube's as
+    phase 7 scores them, F@20mm at least F20_MIN. Returns the grid value
+    kernel's row at one GRID_CHUNK (from phase 3) and the sliced
+    value-and-gradient query's row at this run's largest line-direction
+    call, with this run's launches."""
+    import torch
+
+    from emap_tpu_torch import cli, config
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+    from emap_tpu_torch.ckpt.native import save_pytree
+    from emap_tpu_torch.eval.synthetic import score_extraction
+    from emap_tpu_torch.extract.pointcloud import GRID_CHUNK
+    from emap_tpu_torch.train.runner import Runner
+
+    params = regress_cube_field(ucfg, rel=DTU_FIXTURE_REL)
+    path = conf_copy("DTU", tmp, data_dir)
+    conf = config.parse_file(path)
+    ee = conf.get_config("edge_extraction")
+    res = ee.get_int("resolution")
+    print(f"dtu: edge_extraction {dict(ee.items())}", flush=True)
+    trainer = Runner(conf, "train", device="cuda")
+    check(trainer.ucfg == ucfg, "DTU.conf's field is not the ABC conf's")
+    trainer.state.params["udf"] = params
+    save_pytree(os.path.join(trainer._ckpt_dir(), "ckpt_best.npz"),
+                checkpoint_payload(trainer.state, 0.01))
+    del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = cli.main(["--conf", path, "--mode", "extract_edge"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trace = runner.extract_trace
+    passes = [t for t in trace if t["stage"] == "grid"]
+    per_pass = -(-res ** 3 // GRID_CHUNK)
+    vis = [t for t in trace if t["stage"] == "visibility"]
+    print(f"dtu: {len(passes)} grid passes of {res}^3 points, {per_pass} "
+          f"launches of the grid value kernel a pass (GRID_CHUNK "
+          f"{GRID_CHUNK:,}); peak device memory {peak:.2f} GiB", flush=True)
+    print(f"dtu: visibility filter over {[t['frames'] for t in vis][:1]} "
+          f"frames, kept / dropped a fit {[(t['kept'], t['dropped']) for t in vis]}"
+          f", {sum(t['seconds'] for t in vis):.2f} s", flush=True)
+    check(all(t["points"] == res ** 3 for t in passes) and passes,
+          f"the grid passes are not {res}^3: {passes}")
+    check(len(vis) == len(ee.get_list("auto_threshold")),
+          f"{len(vis)} visibility passes, not one a threshold")
+    linedir_n = extraction_launches(trace, ucfg, ee.get_int("sampling_N"),
+                                    wall, smi)
+    value_key = f"mlp_value/{tier_name('mlp_value', ucfg)}"
+    check(launches[value_key] >= per_pass * len(passes), "fewer grid "
+          "launches than passes x chunks")
+    value_row["launches"] = launches[value_key]
+    with open(os.path.join(runner.base_exp_dir, "results",
+                           "parametric_edges.json")) as f:
+        edges = json.load(f)
+    with open(os.path.join(runner.base_exp_dir, "results",
+                           "threshold_selection.json")) as f:
+        picked = json.load(f)
+    score = score_extraction(runner.base_exp_dir, edges, "cube")
+    print(f"dtu: picked threshold {picked['picked']} of "
+          f"{[r['udf_threshold'] for r in picked['candidates']]} (f3d "
+          f"{[r.get('f3d') for r in picked['candidates']]}); F@5mm "
+          f"{score['fscore_0.005']}, F@10mm {score['fscore_0.01']}, F@20mm "
+          f"{score['fscore_0.02']}, chamfer {score['chamfer']}; "
+          f"{score['n_lines']} lines, {score['n_curves']} curves", flush=True)
+    check(score["fscore_0.02"] >= F20_MIN, f"DTU extraction F@20mm "
+          f"{score['fscore_0.02']} under {F20_MIN}")
+    row = renamed(sliced_row(ucfg, linedir_n), "256^3")
+    row["launches"] = launches[
+        f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"]
+    return [renamed(value_row, "256^3"), row]
 
 
 def main() -> int:
@@ -1361,7 +1651,10 @@ def main() -> int:
     ucfg = UDFConfig.from_conf(abc.get_config("model.udf_network"))
     rcfg = RenderConfig.from_conf(abc.get_config("model.udf_renderer"))
     n = abc.get_int("train.batch_size") * rcfg.total_samples
-    rows = kernel_phase(ucfg, n)
+    rows = kernel_phase(ucfg, n, (GRID_N, GRID_CHUNK_N))
+    # the 256^3 chunk rows wait for phase 11, which launches the 3xTF32 one
+    chunk_rows = {r["tier"]: r for r in rows if r["n"] == GRID_CHUNK_N}
+    rows = [r for r in rows if r["n"] != GRID_CHUNK_N]
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1441,6 +1734,10 @@ def main() -> int:
         rows.append(extract_phase(conf_path, ucfg, row_of, smi))
         score_phase(conf_path, smi)
         rows.append(route_phase(conf_path, tmp, row_of, smi, rows[-1]["n"]))
+        data_pidinet = pidinet_scene(tmp)
+        rows += replica_phase(tmp, data_pidinet, n, smi)
+        rows += dtu_phase(tmp, data_pidinet, ucfg, chunk_rows["3xtf32"],
+                          smi)
 
     idle = [row["name"] for row in rows if not row["launches"]]
     check(not idle, f"no path launched {idle}")

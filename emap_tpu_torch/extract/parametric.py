@@ -13,6 +13,7 @@ python loops.
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -155,12 +156,16 @@ def get_parametric_edge(
     scan_data_dir: str,
     visible_checking: bool = False,
     seed: int = 42,
+    trace: Optional[list] = None,
 ):
     """Point cloud -> parametric lines + Bezier curves
     (reference get_parametric_edge :216-300).
 
     Returns (pred_points (M,3) f32, edge_dict with 'curves_ctl_pts' and
-    'lines_end_pts').
+    'lines_end_pts'). With visible_checking, a `trace` list gets one
+    {"stage": "visibility", "seconds", "frames", "kept", "dropped"} entry:
+    the filter's host time (edge maps read included) and its primitive
+    counts.
     """
     fitted = edge_fit(
         points,
@@ -185,6 +190,7 @@ def get_parametric_edge(
     lines = np.asarray(merged["lines_end_pts"], np.float64).reshape(-1, 6)
 
     if visible_checking:
+        t0 = time.perf_counter()
         _, per_curve, per_line = sample_primitives(curves, lines)
         edges, intrinsics, camtoworld, h, w = get_edge_maps(
             scan_data_dir, detector
@@ -197,6 +203,11 @@ def get_parametric_edge(
         n_curves = len(curves)
         curves = curves[vis[:n_curves]]
         lines = lines[vis[n_curves:]]
+        if trace is not None:
+            trace.append({"stage": "visibility",
+                          "seconds": time.perf_counter() - t0,
+                          "frames": len(edges), "kept": int(vis.sum()),
+                          "dropped": int(len(vis) - vis.sum())})
 
     pred_points, _, _ = sample_primitives(curves, lines, worldtogt=np.eye(4))
     edge_dict = {

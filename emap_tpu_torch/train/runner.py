@@ -535,7 +535,7 @@ class Runner:
             pred_points, edge_dict = get_parametric_edge(
                 points, ld_colors, resolution, self.scene.detector,
                 self.scene.data_dir, visible_checking=visible_checking,
-                seed=seed)
+                seed=seed, trace=trace)
             return points, ld_colors, pred_points, edge_dict
 
         def timed(stage, fn):

@@ -362,8 +362,11 @@ class ChainedStep:
         dev = state.generator.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
+        # made (zero-filled) on the main stream before the side stream waits
+        # on it: otherwise the zero fills may land after the side stream's
+        # `set`, and the warm-up step reads zeros
         self.inputs = StepInputs(dev)
+        side.wait_stream(main)
         with torch.cuda.stream(side):
             self.inputs.set(state.step, image_index(state, self.n_images),
                             self.tcfg)

@@ -26,8 +26,12 @@ longer than one sitting can be taken in parts. Its train_wall_s sums the
 parts. The training dispatches the conf's chain of steps a call (500 for
 confs/ABC.conf) as CUDA graph replays; each part's `launches` counts the
 kernels' runs by "<kernel>/<tier>", replays included (`graph_launches`
-holds the capture's and the replays' shares). The conf's matmul tiers
-apply as it sets them (confs/ABC.conf: the training field query and the
+holds the capture's and the replays' shares) and `card` the card's name
+and power limit. The report adds the extraction's seconds by stage
+(`extract_stages`), its peak device memory, and the threshold selector's
+table (`threshold_selection`: the picked threshold and each candidate's
+row, f3d included, as scripts/run_production.py's report has it). The
+conf's matmul tiers apply as it sets them (confs/ABC.conf: the training field query and the
 up-sampler at the bf16 tier "default", extraction at "high"); the report's
 `tiers` gives what the training run resolved them to.
 """
@@ -85,6 +89,30 @@ def write_conf():
     return path, conf
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them ("" on the
+    CPU): written beside each part's numbers, since the parts of a run may
+    be taken on different machines."""
+    if DEVICE == "cpu":
+        return ""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def stage_seconds(trace: list) -> dict:
+    """An extraction trace's seconds summed by stage, and its counts."""
+    out: dict = {}
+    for t in trace:
+        row = out.setdefault(t["stage"], {"count": 0, "seconds": 0.0})
+        row["count"] += 1
+        row["seconds"] += t["seconds"]
+    return out
+
+
 def since(before: dict, runner=None) -> dict:
     """The kernels' runs since `before` (launch_counts()): the wrappers'
     counts, less the launches that CUDA graph captures counted without
@@ -135,7 +163,7 @@ def main() -> dict:
     (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
         runner.timeline[-1]
     parts.append({"from": start, "to": int(runner.state.step),
-                  "tiers": runner.tiers,
+                  "card": card(), "tiers": runner.tiers,
                   "wall_s": time.time() - t0,
                   # from the first fetch to the last, validations included
                   "ms_per_step": 1e3 * (tb - ta) / max(s1 - s0, 1),
@@ -150,6 +178,10 @@ def main() -> dict:
         return {}
     train_wall = sum(p["wall_s"] for p in parts)
 
+    import torch
+
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
     t1, before = time.time(), launch_counts()
     runner = cli_main(["--conf", conf_path, "--mode", "extract_edge",
                        "--device", DEVICE])
@@ -168,6 +200,12 @@ def main() -> dict:
     }
     with open(os.path.join(exp_dir, "results", "parametric_edges.json")) as f:
         edges = json.load(f)
+    selection_file = os.path.join(exp_dir, "results",
+                                  "threshold_selection.json")
+    selection = None
+    if os.path.exists(selection_file):  # written when the conf has a menu
+        with open(selection_file) as f:
+            selection = json.load(f)
     edge_dict = {"lines_end_pts": edges.get("lines_end_pts", []),
                  "curves_ctl_pts": edges.get("curves_ctl_pts", [])}
     report = {
@@ -176,12 +214,17 @@ def main() -> dict:
         "seed": SEED or 42,
         "iters": end_iter,
         "tiers": parts[-1]["tiers"],
+        "card": card(),
         "train_wall_s": round(train_wall, 1),
         "extract_wall_s": round(extract_wall, 1),
         "gates": gates,
         "score": score_extraction(exp_dir, edge_dict, OBJ),
+        "threshold_selection": selection,
         "train_parts": parts,
         "extract_launches": extract_launches,
+        "extract_stages": stage_seconds(runner.extract_trace),
+        "extract_peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if DEVICE != "cpu" else None),
         "extract_trace": runner.extract_trace,
     }
     with open(os.path.join(OUT, "report.json"), "w") as f:

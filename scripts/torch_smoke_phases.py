@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Chosen phases of chip_smoke.py alone, on one NVIDIA GPU, for the phases
+that are slow to reach or need repeating:
+
+    python3 scripts/torch_smoke_phases.py graph [N]    # phase 8, N times
+    python3 scripts/torch_smoke_phases.py determinism  # the eager step
+    python3 scripts/torch_smoke_phases.py confs        # phases 10 and 11
+
+`graph` trains the smoke conf's 20 steps through the CLI (phase 4) and
+runs phase 8 (CUDA graph replays against eager steps, bit for bit) N
+times on that runner (default 8). `determinism` runs the eager step twice
+from one state on one stream, and on the main stream against a side
+stream, with each up-sampler, and lists the ops
+`torch.use_deterministic_algorithms` names as nondeterministic in it.
+`confs` runs phase 10 (Replica.conf's width) and phase 11 (DTU.conf's
+extraction block) with the grid value kernel's 256^3 rows of phase 3.
+A failed check is printed and the run goes on; the exit code is 1 if any
+failed. Run from the repository root; needs the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import sys
+import tempfile
+import warnings
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, REPO)
+
+
+def attempt(name: str, fn) -> bool:
+    """fn() with chip_smoke.py's failures printed, not raised."""
+    try:
+        fn()
+    except SystemExit as e:
+        print(f"{name}: {str(e)[:300]}", flush=True)
+        return False
+    print(f"{name}: passed", flush=True)
+    return True
+
+
+def graph(tmp: str, smi: str, n: int) -> bool:
+    import chip_smoke as cs
+    from emap_tpu_torch import cli
+
+    runner = cli.main(["--conf", cs.write_run_conf(tmp), "--mode", "train"])
+    passed = [attempt(f"graph attempt {i}",
+                      lambda: cs.graph_phase(runner, smi, float("inf")))
+              for i in range(n)]
+    print(f"graph: {sum(passed)} of {n} attempts passed", flush=True)
+    return all(passed)
+
+
+def determinism(tmp: str) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from emap_tpu_torch import config
+    from emap_tpu_torch.train.runner import Runner
+    from emap_tpu_torch.train.step import build_train_step
+
+    runner = Runner(config.parse_file(cs.write_run_conf(tmp)), "train",
+                    device="cuda")
+    ok = True
+    for kind in ("classical", "mix"):
+        step = build_train_step(
+            runner.tcfg, dataclasses.replace(runner.rcfg,
+                                             upsampling_type=kind),
+            runner.ucfg, runner.scene.n_images)
+        a, b = cs.copied_state(runner), cs.copied_state(runner)
+        for _ in range(3):
+            step(a, runner.pool)
+            step(b, runner.pool)
+        c = cs.copied_state(runner)
+        main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                step(c, runner.pool)
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        want = cs.state_snapshot(a)
+        twice = cs.differing(cs.state_snapshot(b), want)
+        streams = cs.differing(cs.state_snapshot(c), want)
+        print(f"determinism {kind}: 3 eager steps from one state, again: "
+              f"{len(twice)} differing tensors; on a side stream: "
+              f"{len(streams)}", flush=True)
+        ok = ok and not twice and not streams
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        build_train_step(runner.tcfg, runner.rcfg, runner.ucfg,
+                         runner.scene.n_images)(cs.copied_state(runner),
+                                                runner.pool)
+        torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message)[:200] for w in caught})
+    print(f"determinism: {len(named)} ops named nondeterministic "
+          f"{named}", flush=True)
+    return ok and not named
+
+
+def confs(tmp: str, smi: str) -> bool:
+    import chip_smoke as cs
+    from emap_tpu_torch import config
+    from emap_tpu_torch.fields.udf import UDFConfig
+    from emap_tpu_torch.render.renderer import RenderConfig
+
+    abc = config.parse_file(os.path.join(REPO, "confs", "ABC.conf"))
+    ucfg = UDFConfig.from_conf(abc.get_config("model.udf_network"))
+    rcfg = RenderConfig.from_conf(abc.get_config("model.udf_renderer"))
+    n = abc.get_int("train.batch_size") * rcfg.total_samples
+    chunk = {r["tier"]: r for r in cs.kernel_phase(ucfg, n,
+                                                   (cs.GRID_CHUNK_N,))
+             if r["n"] == cs.GRID_CHUNK_N}
+    data = cs.pidinet_scene(tmp)
+    return all([
+        attempt("phase 10", lambda: cs.replica_phase(tmp, data, n, smi)),
+        attempt("phase 11", lambda: cs.dtu_phase(tmp, data, ucfg,
+                                                 chunk["3xtf32"], smi))])
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from emap_tpu_torch import use_fp32_matmuls
+    from emap_tpu_torch.kernels import build
+
+    what = sys.argv[1] if len(sys.argv) > 1 else "graph"
+    cs.check(torch.cuda.is_available(), "no CUDA device")
+    logging.basicConfig(level=logging.WARNING)
+    use_fp32_matmuls()
+    smi = cs.smi_line()
+    print(f"card: {smi}", flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        if what == "graph":
+            ok = graph(tmp, smi, int(sys.argv[2]) if len(sys.argv) > 2
+                       else 8)
+        elif what == "determinism":
+            ok = determinism(tmp)
+        elif what == "confs":
+            ok = confs(tmp, smi)
+        else:
+            raise SystemExit(f"unknown phase set {what!r}: graph, "
+                             "determinism or confs")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,9 @@ CFGS = {
     "toy-square": tudf.UDFConfig(d_hidden=64, n_layers=8, multires=6,
                                  udf_type="square"),
     "abc": tudf.UDFConfig(),
+    # Replica.conf's field: multires 6, d0 39 padded to 40, the skip layer
+    # taking 217 + 39 inputs
+    "replica": tudf.UDFConfig(multires=6),
 }
 
 
@@ -160,14 +163,15 @@ def test_cuda_train_query_grads_match_autograd(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
 @pytest.mark.parametrize("n", [262_144, 300_032])
-def test_cuda_extraction_kernels_match_plain(cuda, n):
-    """At ABC width: the value kernel, and the value-and-gradient kernel
-    through the extraction's slicing wrapper (one launch per SLICE_CAP
-    points), against their plain versions, max rel 1e-4 per output. Above
-    the cap the slices concatenate to the unsliced launch bit for bit (each
-    point is computed alone)."""
-    cfg = CFGS["abc"]
+def test_cuda_extraction_kernels_match_plain(cuda, n, name):
+    """At ABC width and at Replica.conf's (multires 6): the value kernel,
+    and the value-and-gradient kernel through the extraction's slicing
+    wrapper (one launch per SLICE_CAP points), against their plain
+    versions, max rel 1e-4 per output. Above the cap the slices concatenate
+    to the unsliced launch bit for bit (each point is computed alone)."""
+    cfg = CFGS[name]
     x, _, _ = points(n, cuda)
     w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
                                                              cfg))
@@ -205,13 +209,15 @@ def test_cuda_point_queries_pad_to_the_tile(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "default"])
 @pytest.mark.parametrize("multires", [10, 6])
-def test_cuda_value_kernel_matches_plain(cuda, multires):
+def test_cuda_value_kernel_matches_plain(cuda, multires, precision):
     """The grid value kernel at ABC width with the ABC conf's multires = 10
     (d0p 64) and the Replica conf's multires = 6 (d0p 40, so the encoded
-    tile's 64 rows are part padding) against value_plain, max rel 1e-4;
-    one launch counted; two launches bit-identical."""
-    cfg = tudf.UDFConfig(multires=multires)
+    tile's 64 rows are part padding) against value_plain at the same tier,
+    max rel 1e-4 at 3xTF32 ("high") and BF16_RTOL at the bf16 tier
+    ("default"); one launch counted; two launches bit-identical."""
+    cfg = tudf.UDFConfig(multires=multires, precision=precision)
     x, _, _ = points(65_536, cuda)
     w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
                                                              cfg))
@@ -221,7 +227,8 @@ def test_cuda_value_kernel_matches_plain(cuda, multires):
     torch.cuda.synchronize()
     assert tq.value.launches == before + 2
     assert bool(torch.isfinite(u).all())
-    assert max_rel(u, tq.value_plain(x, w, b, cfg)) < 1e-4
+    assert max_rel(u, tq.value_plain(x, w, b, cfg)) < (
+        BF16_RTOL if precision == "default" else 1e-4)
     assert torch.equal(u, again)
 
 
@@ -442,6 +449,26 @@ def test_cuda_graph_capture_leaves_the_state_untouched(cuda, tmp_path):
     assert torch.equal(more, _eager_rows(eager, 3))
     _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
     chained.release()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_warm_up_reads_its_inputs(cuda, tmp_path):
+    """Each capture's warm-up step reads the inputs the host set for it,
+    not the zeros they are made with: 8 captures in a row (a chain of 1
+    each) leave the state of 8 eager steps. The inputs were once made after
+    the side stream's wait on the main stream, so their zero fills could
+    land after the side stream's `set`, now and then."""
+    conf = _train_conf(tmp_path, "classical")
+    eager, graphed = _runner(conf), _runner(conf)
+    want = _eager_rows(eager, 8)
+    rows = []
+    for _ in range(8):
+        _, chained = _step_fns(graphed, 1)
+        rows.append(chained(graphed.state, graphed.pool))
+        torch.cuda.synchronize()
+        chained.release()
+    assert torch.equal(torch.cat(rows), want)
+    _assert_same(_snapshot(graphed.state), _snapshot(eager.state))
 
 
 @pytest.mark.cuda

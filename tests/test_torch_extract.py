@@ -386,6 +386,20 @@ def test_edge_fit_matches_jax(growth, tmp_path, monkeypatch):
     assert len(got["lines_end_pts"]) >= 12
 
 
+def test_bezier_curve_length_equals_jax_bit_for_bit():
+    """The port's one-pass arc length against the JAX package's per-sample
+    loop on random curves, large and small: equal in every bit, so the
+    sample counts of primitives (length // 5 mm) agree everywhere."""
+    rng = np.random.default_rng(9)
+    curves = np.concatenate([rng.uniform(-1, 1, (30, 12)),
+                             rng.normal(0, 0.02, (30, 12))])
+    for c in curves:
+        got = tfit.bezier_curve_length(c, num_samples=100)
+        assert got == jfit.bezier_curve_length(c, num_samples=100)
+    assert tfit.bezier_curve_length(curves[0], 10) == \
+        jfit.bezier_curve_length(curves[0], 10)
+
+
 def test_merge_and_parametric_edge_match_jax(tmp_path):
     pts, cols = cube_cloud(40, seed=1)
     fitted = jfit.edge_fit(pts, cols, 128)
