@@ -91,7 +91,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
      0.005 threshold needs: the launches reckoned from the
      trace, the stage times, the peak device memory, the primitives the
      filter kept and dropped, and the edges scored against the cube's as
-     in phase 7, F@20mm at least F20_MIN.
+     in phase 7, F@20mm at least F20_MIN;
+ 12. the multi-device path (emap_tpu_torch/parallel/mesh.py): a NCCL
+     group of world 1 in this process; from one copied state, 2 x
+     GRAPH_CHAIN steps without a group (which call no collective), as
+     many eager steps of the group and two chained calls of the group
+     (its two collectives a step captured in the CUDA graph with the
+     step), all three bit for bit, with the NCCL version, the collectives
+     a replay, the replays' ms/step and a profile; the ABC block's
+     extraction device stages on phase 6's field with and without the
+     group, bit for bit; extract_fields and extract_gradient_fields, their
+     launches of #3 and #1b counted and held against plain autograd; and,
+     where the machine has two cards or more, phase 4's run through the
+     CLI on 2 (and 4) spawned NCCL ranks against one process (losses rtol
+     1e-4, parameters rtol 2e-4 / atol 2e-6, ranks bit-identical), else a
+     line saying it was not run.
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it: the main path (phases 4 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
@@ -1078,6 +1092,26 @@ def extraction_launches(trace: list, ucfg, n_jitter: int, wall: float,
                for t in sweeps if t["linedir"])
 
 
+def fixture_checkpoint(conf_path: str, ucfg) -> dict:
+    """Phase 6's fixture: the cube field (regress_cube_field) saved as the
+    smoke run's checkpoint, from which `--mode extract_edge` reads it.
+    Returns its params."""
+    from emap_tpu_torch import config
+    from emap_tpu_torch.ckpt.convert import checkpoint_payload
+    from emap_tpu_torch.ckpt.native import save_pytree
+    from emap_tpu_torch.train.runner import Runner
+
+    t0 = time.perf_counter()
+    params = regress_cube_field(ucfg)
+    trainer = Runner(config.parse_file(conf_path), "train", device="cuda")
+    trainer.state.params["udf"] = params
+    save_pytree(os.path.join(trainer._ckpt_dir(), "ckpt_best.npz"),
+                checkpoint_payload(trainer.state, 0.01))
+    print(f"extract: fixture and checkpoint in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return params
+
+
 def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     """Phase 6: `--mode extract_edge` with the ABC conf's edge_extraction
     block on the regressed cube field; the launches against a reckoning
@@ -1088,24 +1122,12 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     import torch
 
     from emap_tpu_torch import cli, config
-    from emap_tpu_torch.ckpt.convert import checkpoint_payload
-    from emap_tpu_torch.ckpt.native import save_pytree
     from emap_tpu_torch.data.synthetic import cube_edges
     from emap_tpu_torch.extract import pointcloud
-    from emap_tpu_torch.train.runner import Runner
     from emap_tpu_torch.utils.ply import read_ply_points
 
-    t0 = time.perf_counter()
-    params = regress_cube_field(ucfg)
+    params = fixture_checkpoint(conf_path, ucfg)
     conf = config.parse_file(conf_path)
-    trainer = Runner(conf, "train", device="cuda")
-    trainer.state.params["udf"] = params
-    ckpt = os.path.join(trainer._ckpt_dir(), "ckpt_best.npz")
-    save_pytree(ckpt, checkpoint_payload(trainer.state, 0.01))
-    del trainer
-    print(f"extract: fixture and checkpoint in {time.perf_counter() - t0:.1f}"
-          f" s", flush=True)
-
     ee = conf.get_config("edge_extraction")
     res, n_jitter = ee.get_int("resolution"), ee.get_int("sampling_N")
     mask_disagreement(params, ucfg, res,
@@ -1144,7 +1166,8 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     try:
-        runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"])
+        runner = cli.main(["--conf", conf_path, "--mode", "extract_edge"],
+                          n_devices=1)
         torch.cuda.synchronize()
     finally:
         pointcloud.grid_masks, pointcloud._run_point_batches = grid, batches
@@ -1312,7 +1335,7 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
         path = route_conf(conf_path, tmp, name, pins)
         zero_counts()
         t0 = time.perf_counter()
-        runner = cli.main(["--conf", path, "--mode", "train"])
+        runner = cli.main(["--conf", path, "--mode", "train"], n_devices=1)
         torch.cuda.synchronize()
         launches = ran(runner)
         got = {k: v for k, v in launches.items() if v}
@@ -1337,7 +1360,7 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
     path = route_conf(conf_path, tmp, "extract_default", pins, extract=True)
     zero_counts()
     t0 = time.perf_counter()
-    runner = cli.main(["--conf", path, "--mode", "extract_edge"])
+    runner = cli.main(["--conf", path, "--mode", "extract_edge"], n_devices=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ran()
@@ -1446,7 +1469,7 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
 
     zero_counts()
     t0 = time.perf_counter()
-    runner = cli.main(["--conf", path, "--mode", "train"])
+    runner = cli.main(["--conf", path, "--mode", "train"], n_devices=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ran(runner)
@@ -1565,7 +1588,7 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    runner = cli.main(["--conf", path, "--mode", "extract_edge"])
+    runner = cli.main(["--conf", path, "--mode", "extract_edge"], n_devices=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ran()
@@ -1609,6 +1632,299 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
     row["launches"] = launches[
         f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"]
     return [renamed(value_row, "256^3"), row]
+
+
+def nccl_version() -> str:
+    import torch
+
+    v = torch.cuda.nccl.version()
+    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+def counted_collectives(fn) -> tuple:
+    """(fn(), the torch.distributed collectives it called)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "barrier", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+    calls = []
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        return fn(), calls
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def group_step_check(runner, group, smi: str) -> None:
+    """Phase 12, the step through a NCCL group of world 1 at ABC width:
+    from one copied state, 2 x GRAPH_CHAIN steps without a group, as many
+    eager steps of the group, and two chained calls of GRAPH_CHAIN of the
+    group (a warm-up step, the capture with its collectives, then
+    replays): the three bit for bit in every state tensor and metric row.
+    The steps without a group call no collective."""
+    import torch
+
+    from emap_tpu_torch.train.step import (
+        build_chained_train_step,
+        build_train_step,
+        pack_metrics,
+    )
+
+    pool = runner.pool
+    args = (runner.tcfg, runner.rcfg, runner.ucfg, runner.scene.n_images)
+    alone_st, eager_st, graph_st = (copied_state(runner) for _ in range(3))
+    single = build_train_step(*args)
+    want, calls = counted_collectives(lambda: torch.stack(
+        [pack_metrics(single(alone_st, pool))
+         for _ in range(2 * GRAPH_CHAIN)]))
+    check(not calls, f"the step without a group called {calls}")
+    grouped = build_train_step(*args, group=group)
+    before = group.collectives
+    eager = torch.stack([pack_metrics(grouped(eager_st, pool))
+                         for _ in range(2 * GRAPH_CHAIN)])
+    per_eager = (group.collectives - before) / (2 * GRAPH_CHAIN)
+    chained = build_chained_train_step(*args, GRAPH_CHAIN, group=group)
+    got = torch.cat([chained(graph_st, pool) for _ in range(2)])
+    torch.cuda.synchronize()
+    snap = state_snapshot(eager_st)
+    vs_eager = differing(state_snapshot(graph_st), snap)
+    vs_alone = differing(snap, state_snapshot(alone_st))
+    rows_eager = sorted({int(i) for i in torch.nonzero(got != eager)[:, 1]})
+    rows_alone = sorted({int(i) for i in torch.nonzero(eager != want)[:, 1]})
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chained(graph_st, pool)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / GRAPH_CHAIN)
+    prof = profile_window(lambda: chained(graph_st, pool), GRAPH_CHAIN)
+    chained.release()
+    nccl_kernels = [(round(t, 4), round(c, 2), k) for t, c, k in prof["top"]
+                    if "nccl" in k.lower()]
+    print(f"parallel: NCCL {nccl_version()}, a group of world 1 on {smi}: "
+          f"{per_eager:g} collectives an eager step; the captured step "
+          f"holds {chained.collectives_per_step} (a replay runs them); "
+          f"{2 * GRAPH_CHAIN} steps, the group's eager steps vs a warm-up "
+          f"step + {2 * GRAPH_CHAIN - 1} replays: differing state tensors "
+          f"{vs_eager or 'none'}, metric columns {rows_eager or 'none'}; "
+          f"the group's eager steps vs the steps without a group: "
+          f"{vs_alone or 'none'}, {rows_alone or 'none'}; replays "
+          f"{ms} ms/step; NCCL kernels among a replay's top kernels "
+          f"{nccl_kernels or 'none'}", flush=True)
+    print_profile("group replay", prof, sum(ms) / len(ms))
+    check(chained.collectives_per_step == per_eager == 2,
+          f"the step made {per_eager} collectives eagerly and "
+          f"{chained.collectives_per_step} in its capture, not 2")
+    check(not vs_eager and not rows_eager, f"the group's replays differ "
+          f"from its eager steps in {vs_eager}, columns {rows_eager}")
+    check(not vs_alone and not rows_alone, f"the group's steps differ from "
+          f"the steps without a group in {vs_alone}, columns {rows_alone}")
+
+
+def group_extract_check(conf_path: str, group, smi: str) -> None:
+    """Phase 12, extraction through the group: the ABC conf's device stages
+    (extract_pointcloud_multi: 128^3 grid masks, point shift, line
+    directions) on phase 6's field, with and without the group, bit for
+    bit, with the same launches."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch import config
+    from emap_tpu_torch.extract.pointcloud import extract_pointcloud_multi
+    from emap_tpu_torch.train.runner import Runner
+
+    conf = config.parse_file(conf_path)
+    runner = Runner(conf, "extract_edge", device="cuda")
+    runner.load_checkpoint()
+    params = {k: {n: t.detach() for n, t in layer.items()}
+              for k, layer in runner.state.params["udf"].items()}
+    ee = conf.get_config("edge_extraction")
+    kw = dict(resolution=ee.get_int("resolution"),
+              thresholds=[float(t) for t in ee.get_list("auto_threshold")],
+              sampling_N=ee.get_int("sampling_N"),
+              sampling_delta=ee.get_float("sampling_delta"),
+              is_pointshift=ee.get_bool("is_pointshift"),
+              iters=ee.get_int("iters"),
+              is_linedirection=ee.get_bool("is_linedirection"))
+    out, launches, secs = [], [], []
+    before = group.collectives
+    # in turns: alone, group, group, alone
+    for grp in (None, group, group, None):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(extract_pointcloud_multi(params, runner.ucfg, group=grp,
+                                            **kw))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append({k: v for k, v in ran().items() if v})
+    gathers = (group.collectives - before) // 2
+    same = all(sorted(o) == sorted(out[0]) and all(
+        np.array_equal(g, w) for t in out[0] for g, w in zip(o[t], out[0][t]))
+        for o in out[1:])
+    sizes = {t: len(p) for t, (p, _) in out[0].items()}
+    print(f"parallel: the ABC block's device stages on phase 6's field, "
+          f"alone {secs[0]:.3f} / {secs[3]:.3f} s, through the group "
+          f"{secs[1]:.3f} / {secs[2]:.3f} s ({gathers} gathers) on {smi}; "
+          f"points by threshold {sizes}; equal bit for bit: {same}; "
+          f"launches {launches[0]} / {launches[1]}", flush=True)
+    check(same, "the extraction through the group differs from the "
+          "extraction without it")
+    check(all(x == launches[0] for x in launches),
+          "the group changed the launches")
+
+
+def dense_fields_check(ucfg) -> None:
+    """Phase 12, the dense-field helpers on the card: extract_fields through
+    the grid value kernel (#3) and extract_gradient_fields through the
+    sliced value-and-gradient kernel (#1b), their launches counted, held
+    against the field's plain autograd query on the same points (fp32 at
+    the model tier: 1e-4 of the largest value; the gradient away from the
+    zero set, where the abs head's sign may differ, as in head_signs)."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch.extract.pointcloud import (
+        _box_points,
+        extract_fields,
+        extract_gradient_fields,
+    )
+    from emap_tpu_torch.fields.udf import (
+        init_udf_params,
+        udf_value,
+        udf_value_and_gradient,
+    )
+
+    params = init_udf_params(torch.Generator().manual_seed(7), ucfg,
+                             device="cuda")
+    box, res = ([-1.0, -0.9, -0.8], [0.9, 1.0, 0.7]), 48
+    pts = torch.as_tensor(_box_points(*box, res), device="cuda")
+    zero_counts()
+    vals = extract_fields(params, ucfg, *box, res, chunk=32768)
+    grads = extract_gradient_fields(params, ucfg, *box, res, chunk=32768)
+    launches = {k: v for k, v in ran().items() if v}
+    with torch.no_grad():
+        want_v = udf_value(params, pts, ucfg).cpu().numpy()
+    want_g = udf_value_and_gradient(params, pts, ucfg)[1].detach()
+    want_g = want_g.cpu().numpy()
+    err_v = float(np.abs(vals.ravel() - want_v.ravel()).max()
+                  / np.abs(want_v).max())
+    off = np.abs(want_v.ravel()) > 1e-4
+    err_g = float(np.abs(grads.reshape(-1, 3) - want_g)[off].max()
+                  / np.abs(want_g).max())
+    n_chunks = -(-res ** 3 // 32768)
+    print(f"parallel: extract_fields / extract_gradient_fields at {res}^3 "
+          f"in {n_chunks} chunks: launches {launches}; against plain "
+          f"autograd {err_v:.2e} / {err_g:.2e} of the largest", flush=True)
+    tier = tier_name("mlp_value", ucfg)
+    check(launches == {f"mlp_value/{tier}": n_chunks,
+                       f"mlp_value_and_grad/{tier}": n_chunks},
+          f"the dense-field helpers launched {launches}")
+    check(err_v < 1e-4 and err_g < 1e-4, "the dense fields differ from the "
+          "plain query")
+
+
+def multi_rank_check(conf_path: str, tmp: str, smi: str) -> None:
+    """Phase 12 where the machine has two cards or more: the smoke conf's
+    END_ITER steps and validation through `cli.main` on 2 (and, with four
+    cards, 4) spawned NCCL ranks against one process: losses rtol 1e-4,
+    parameters rtol 2e-4 / atol 2e-6 (the CPU tests' tolerances), every
+    rank's parameters bit for bit, each rank's launches."""
+    import numpy as np
+    import torch
+
+    from emap_tpu_torch import cli, config
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        print(f"parallel: the spawned multi-rank CLI run was not run: it "
+              f"needs 2 cards, this machine has {cards}", flush=True)
+        return
+
+    def conf_for(world):
+        conf = config.parse_file(conf_path)
+        conf["general.base_exp_dir"] = os.path.join(tmp, f"world{world}")
+        path = os.path.join(tmp, f"world{world}.conf")
+        with open(path, "w") as f:
+            f.write(conf.to_hocon())
+        return path
+
+    one = cli.main(["--conf", conf_for(1), "--mode", "train"], n_devices=1)
+    (s0, ta), (s1, tb) = one.timeline[1], one.timeline[-1]
+    print(f"parallel: world 1: {1e3 * (tb - ta) / (s1 - s0):.2f} ms/step "
+          f"over steps {s0 + 1}-{s1} on {smi}", flush=True)
+    losses = np.array([h["loss"] for h in one.history])
+    params = {f"{k}/{n}": t.detach().cpu().numpy()
+              for k, layer in one.state.params["udf"].items()
+              for n, t in layer.items()}
+    for world in worlds:
+        t0 = time.perf_counter()
+        ranks = cli.main(["--conf", conf_for(world), "--mode", "train"],
+                         n_devices=world)
+        wall = time.perf_counter() - t0
+        got = np.array([h["loss"] for h in ranks[0]["history"]])
+        loss_err = float(np.max(np.abs(got - losses) / np.abs(losses)))
+        worst, over = 0.0, []
+        for r in ranks:
+            for key, want in params.items():
+                layer, name = key.split("/")
+                g = r["params"][layer][name]
+                worst = max(worst, float(np.max(np.abs(g - want)
+                                                 / (np.abs(want) + 1e-30))))
+                if not np.allclose(g, want, rtol=2e-4, atol=2e-6):
+                    over.append(f"rank {r['rank']} {key}")
+        same = all(np.array_equal(r["params"][k][n], ranks[0]["params"][k][n])
+                   for r in ranks for k in ranks[0]["params"]
+                   for n in ranks[0]["params"][k])
+        (s0, ta), (s1, tb) = ranks[0]["timeline"][1], ranks[0]["timeline"][-1]
+        print(f"parallel: world {world}: {END_ITER} steps and a validation "
+              f"through cli.main in {wall:.1f} s (spawn and set-up "
+              f"included), {1e3 * (tb - ta) / (s1 - s0):.2f} ms/step over "
+              f"steps {s0 + 1}-{s1} on {smi}; losses vs one process: max "
+              f"relative {loss_err:.2e}; parameters: max relative "
+              f"{worst:.2e}, outside rtol 2e-4 / atol 2e-6: "
+              f"{over[:6] or 'none'}; ranks bit-identical: {same}; "
+              f"launches by rank "
+              f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+              f"; collectives by rank {[r['collectives'] for r in ranks]}",
+              flush=True)
+        check(loss_err <= 1e-4 and not over and same,
+              f"world {world} differs from one process")
+
+
+def parallel_phase(runner, conf_path: str, tmp: str, smi: str) -> None:
+    """Phase 12: the multi-device path (parallel/mesh.py). A NCCL group of
+    world 1 in this process: the ABC-width step with its collectives
+    captured in the CUDA graph, and the extraction's device stages,
+    through it (group_step_check, group_extract_check); the dense-field
+    helpers' launches; and, on a machine with two cards or more, spawned
+    multi-rank runs of the CLI (multi_rank_check)."""
+    import torch
+
+    from emap_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    group = mesh.init_group(0, 1, torch.device("cuda", 0))
+    print(f"parallel: NCCL group of world 1 made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    try:
+        group_step_check(runner, group, smi)
+        group_extract_check(conf_path, group, smi)
+    finally:
+        torch.distributed.destroy_process_group()
+    dense_fields_check(runner.ucfg)
+    multi_rank_check(conf_path, tmp, smi)
 
 
 def main() -> int:
@@ -1664,7 +1980,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         t0 = time.perf_counter()
-        runner = cli.main(["--conf", conf_path, "--mode", "train"])
+        runner = cli.main(["--conf", conf_path, "--mode", "train"],
+                          n_devices=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counted = {k: v for k, v in ran().items() if v}
@@ -1738,6 +2055,7 @@ def main() -> int:
         rows += replica_phase(tmp, data_pidinet, n, smi)
         rows += dtu_phase(tmp, data_pidinet, ucfg, chunk_rows["3xtf32"],
                           smi)
+        parallel_phase(runner, conf_path, tmp, smi)
 
     idle = [row["name"] for row in rows if not row["launches"]]
     check(not idle, f"no path launched {idle}")

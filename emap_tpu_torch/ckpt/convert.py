@@ -6,7 +6,9 @@ params)`), is {"udf": {"lin{l}": {"g", "v", "b"}}, "variance": {"variance",
 "second_variance"}, "beta": {"beta", "gamma", "zeta"}}. The port keeps the
 same keys and shapes, so converting is a checked tree map: numpy <-> float32
 tensors on a device. A checkpoint written by either package's runner
-(`checkpoint_payload`) loads in the other.
+(`checkpoint_payload`) loads in the other. The rendering net's params
+(fields/rendering_net.py) cross over the same way
+(`rendering_params_from_numpy`, and `params_to_numpy` back).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from emap_tpu_torch.fields.rendering_net import RenderingNetConfig
 from emap_tpu_torch.fields.udf import UDFConfig
 from emap_tpu_torch.train.optim import AdamState, tree_map
 from emap_tpu_torch.train.state import TrainState, make_state
@@ -77,6 +80,30 @@ def checkpoint_payload(state: TrainState, best_loss: float) -> dict:
         "flags": {k: np.asarray(bool(getattr(state, k))) for k in FLAG_KEYS},
         "best_loss": np.asarray(best_loss, np.float32),
     }
+
+
+def rendering_params_from_numpy(tree, cfg: RenderingNetConfig,
+                                device="cuda"):
+    """The JAX package's rendering-net params ({"lin{l}": {"g", "v", "b"}}
+    or {"w", "b"}, numpy) as the port's, checked against `cfg`'s dims
+    (fields/rendering_net.py)."""
+    out = _tensors(tree, device)
+    dims = cfg.dims
+    want = {f"lin{l}" for l in range(len(dims) - 1)}
+    if set(out) != want:
+        raise ValueError(f"rendering params hold {sorted(out)}; the conf's "
+                         f"net has {sorted(want)}")
+    for l in range(len(dims) - 1):
+        layer = out[f"lin{l}"]
+        keys = ("g", "v", "b") if cfg.weight_norm else ("w", "b")
+        if set(layer) != set(keys):
+            raise ValueError(f"rendering lin{l} must hold {keys}")
+        w = layer["v"] if cfg.weight_norm else layer["w"]
+        if tuple(w.shape) != (dims[l + 1], dims[l]):
+            raise ValueError(f"rendering lin{l} has weight {tuple(w.shape)};"
+                             f" the conf's net wants ({dims[l + 1]}, "
+                             f"{dims[l]})")
+    return out
 
 
 def adam_from_numpy(opt: dict, device="cuda") -> AdamState:

@@ -1,7 +1,9 @@
 from emap_tpu_torch.data.dataset import (
     RayPool,
     SceneData,
+    color_at,
     edge_at,
+    gen_one_ray_at,
     gen_rays_at,
     importance_cdf,
     load_scene,
@@ -15,7 +17,9 @@ from emap_tpu_torch.data.synthetic import make_synthetic_scene
 __all__ = [
     "RayPool",
     "SceneData",
+    "color_at",
     "edge_at",
+    "gen_one_ray_at",
     "gen_rays_at",
     "importance_cdf",
     "load_scene",

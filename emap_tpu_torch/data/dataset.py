@@ -44,6 +44,11 @@ class SceneData:
     edge_paths: list
     color_paths: list
 
+    @property
+    def masks(self) -> np.ndarray:
+        """(n, H, W) float32: 1 where the edge map exceeds 0.5."""
+        return (self.edges > 0.5).astype(np.float32)
+
 
 def load_meta(data_dir: str) -> Dict[str, Any]:
     with open(os.path.join(data_dir, "meta_data.json"), encoding="utf-8") as f:
@@ -180,11 +185,13 @@ def rays_from_pixels(pool: RayPool, img_idx, px, py):
 
 
 def sample_rays(pool: RayPool, img_idx, generator: torch.Generator,
-                batch_size: int, importance_sample: bool = True):
+                batch_size: int, importance_sample: bool = True, group=None):
     """A training batch of rays on the pool's device: dict(rays_o, rays_d,
     edge, depth_scale, rays_ndc_uv), drawn from `generator` (on the same
     device). `img_idx`: an int or a 0-d int64 tensor on the pool's
-    device."""
+    device. With a `group` (parallel/mesh.py::RayGroup) every rank draws
+    the pixels of the whole `batch_size` batch and builds the rays of its
+    own rows, so the generator advances alike on every rank."""
     dev = pool.device
     if importance_sample:
         n_uniform = batch_size // 2
@@ -204,6 +211,8 @@ def sample_rays(pool: RayPool, img_idx, generator: torch.Generator,
                            device=dev).to(torch.float32)
         py = torch.randint(0, pool.H, (batch_size,), generator=generator,
                            device=dev).to(torch.float32)
+    if group is not None:
+        px, py = group.shard(px), group.shard(py)
     return rays_at_pixels(pool, img_idx, px, py)
 
 
@@ -238,6 +247,21 @@ def gen_rays_at(scene: SceneData, img_idx: int, resolution_level: int = 1):
     return rays_o, rays_d, depth_scale
 
 
+def gen_one_ray_at(scene: SceneData, img_idx: int, x: int, y: int) -> dict:
+    """The ray through one pixel (x, y) of a view, for debugging: numpy
+    rays_o, rays_v (1, 3), edge and mask (1, 1), color (1, 3) and
+    depth_scale (1, 1)."""
+    rays_o, rays_d, depth_scale = gen_rays_at(scene, img_idx, 1)
+    return {
+        "rays_o": rays_o[y: y + 1, x],
+        "rays_v": rays_d[y: y + 1, x],
+        "edge": scene.edges[img_idx, y: y + 1, x: x + 1],
+        "color": scene.colors[img_idx, y: y + 1, x],
+        "mask": scene.masks[img_idx, y: y + 1, x: x + 1],
+        "depth_scale": depth_scale[y: y + 1, x],
+    }
+
+
 def edge_at(scene: SceneData, idx: int, resolution_level: int) -> np.ndarray:
     """Ground-truth edge image (h, w) uint8 at 1/resolution_level size. At
     level 1 it equals the JAX package's cv2.resize to the same size (the map
@@ -260,3 +284,17 @@ def edge_at(scene: SceneData, idx: int, resolution_level: int) -> np.ndarray:
     rows = e[y0] * (1.0 - fy[:, None]) + e[y1] * fy[:, None]
     out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
     return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def color_at(scene: SceneData, idx: int, resolution_level: int) -> np.ndarray:
+    """Colour image (h, w, 3) uint8 at 1/resolution_level size: OpenCV's
+    INTER_NEAREST resize (source pixel floor(x * src / dst)), as the JAX
+    package's cv2.resize gives it."""
+    img = (scene.colors[idx] * 255.0).astype(np.uint8)
+    h, w = scene.H // resolution_level, scene.W // resolution_level
+
+    def taps(n_out, n_in):
+        return np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in)))
+                          .astype(np.int64), n_in - 1)
+
+    return img[taps(h, img.shape[0])][:, taps(w, img.shape[1])]

@@ -27,6 +27,17 @@ does not reach it.
 `trace`, where given, is a list that receives one dict per device stage:
 {"stage": "grid" | "sweep", "points": ..., "seconds": ...} (sweeps also
 "linedir"), timed on the host clock after the results reach the host.
+
+With a `group` (parallel/mesh.py::RayGroup) the device stages are shared
+out as the JAX package shards them over its mesh: each rank takes a
+contiguous sub-range of every grid chunk and its rows of every point batch
+(the jitter still drawn for the whole batch and sliced), and the results
+are gathered back in order to every rank. A point's value does not depend
+on the launch it is in, so the masks, candidates and features equal one
+process's bit for bit. Every rank must make the same calls.
+
+`extract_fields` and `extract_gradient_fields` sample a dense grid over any
+box through the same two kernels, in one process.
 """
 
 from __future__ import annotations
@@ -68,9 +79,13 @@ def grid_points(start: int, chunk: int, N: int, device) -> torch.Tensor:
 
 
 def grid_masks(params, ucfg: UDFConfig, N: int, thresholds,
-               grid_chunk: int = GRID_CHUNK, trace=None) -> np.ndarray:
+               grid_chunk: int = GRID_CHUNK, trace=None,
+               group=None) -> np.ndarray:
     """(K, N^3) bool near-surface masks, one per threshold, from ONE grid
-    evaluation: max(udf, 0) <= t (clip to 0, then compare)."""
+    evaluation: max(udf, 0) <= t (clip to 0, then compare). Under a
+    `group` each rank evaluates a contiguous sub-range of every chunk
+    (ceil(n / world) points; the last rank's tail past the chunk is
+    evaluated and dropped) and the masks are gathered."""
     t0 = time.perf_counter()
     dev = params_device(params)
     total = N ** 3
@@ -78,9 +93,17 @@ def grid_masks(params, ucfg: UDFConfig, N: int, thresholds,
     out = []
     for start in range(0, total, chunk):
         n = min(chunk, total - start)
-        vals = torch.clamp(query_value(params, grid_points(start, n, N, dev),
-                                       ucfg), min=0.0)
-        out.append(torch.stack([vals <= float(t) for t in thresholds]))
+        if group is None:
+            pts = grid_points(start, n, N, dev)
+        else:
+            per = group.bounds(n)[2]
+            pts = grid_points(start + group.rank * per, per, N, dev)
+        vals = torch.clamp(query_value(params, pts, ucfg), min=0.0)
+        mask = torch.stack([vals <= float(t) for t in thresholds])
+        if group is not None:
+            # (K, per) a rank -> (K, n); uint8, which every backend takes
+            mask = group.gather_rows(mask.T.to(torch.uint8))[:n].T.bool()
+        out.append(mask)
     masks = torch.cat(out, dim=1).cpu().numpy()
     if trace is not None:
         trace.append({"stage": "grid", "points": total,
@@ -122,10 +145,12 @@ def batch_seed(seed: int, sweep: int, batch: int) -> int:
 def _run_point_batches(params, ucfg: UDFConfig, pts_np: np.ndarray,
                        seed: int, sweep: int, sampling_n: int,
                        sampling_delta: float, with_linedir: bool, batch: int,
-                       trace=None):
+                       trace=None, group=None):
     """Loop over batches of at most `batch` points, querying only the live
     rows; every batch is queued on the device before any result is
-    fetched."""
+    fetched. Under a `group` each rank takes its rows of every batch
+    (zero-padded to ceil(rows / world), the padding dropped after the
+    gather) with the same rows of the batch's jitter."""
     t0 = time.perf_counter()
     m = len(pts_np)
     if m == 0:
@@ -144,8 +169,17 @@ def _run_point_batches(params, ucfg: UDFConfig, pts_np: np.ndarray,
             jitter = sampling_delta * torch.randn(
                 (batch, sampling_n, 3), generator=gen, device=dev,
                 dtype=torch.float32)[:len(chunk)]
-        pending.append(_point_batch_features(params, chunk, jitter, ucfg,
-                                             sampling_n, with_linedir))
+        if group is None:
+            pending.append(_point_batch_features(
+                params, chunk, jitter, ucfg, sampling_n, with_linedir))
+            continue
+        feats = _point_batch_features(
+            params, group.padded_shard(chunk),
+            None if jitter is None else group.padded_shard(jitter), ucfg,
+            sampling_n, with_linedir)
+        flat = group.gather_rows(torch.cat(
+            [feats[0][:, None], feats[1], feats[2]], dim=1))[:len(chunk)]
+        pending.append((flat[:, 0], flat[:, 1:4], flat[:, 4:7]))
     udf, nrm, ld = (torch.cat([p[i] for p in pending]).cpu().numpy()
                     for i in range(3))
     if trace is not None:
@@ -160,20 +194,57 @@ def _candidates(cand_idx: np.ndarray, N: int) -> np.ndarray:
                      cand_idx % N], axis=-1).astype(np.float32) * voxel - 1.0
 
 
+def _box_points(bound_min, bound_max, resolution: int) -> np.ndarray:
+    """(res^3, 3) float32 points of a grid over an axis-aligned box, x
+    slowest (the JAX package's meshgrid, indexing "ij")."""
+    axes = [np.linspace(bound_min[d], bound_max[d], resolution,
+                        dtype=np.float32) for d in range(3)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+
+
+def extract_fields(params, ucfg: UDFConfig, bound_min, bound_max,
+                   resolution: int, chunk: int = 65536) -> np.ndarray:
+    """Dense UDF grid over the box [bound_min, bound_max], (res, res, res)
+    numpy float32: the JAX package's extract_fields, through the grid value
+    kernel in launches of `chunk` points."""
+    pts = torch.as_tensor(_box_points(bound_min, bound_max, resolution),
+                          device=params_device(params))
+    with torch.no_grad():
+        vals = torch.cat([query_value(params, p, ucfg)
+                          for p in pts.split(chunk)])
+    return vals.cpu().numpy().reshape((resolution,) * 3)
+
+
+def extract_gradient_fields(params, ucfg: UDFConfig, bound_min, bound_max,
+                            resolution: int,
+                            chunk: int = 65536) -> np.ndarray:
+    """Dense UDF-gradient grid over the box, (res, res, res, 3) numpy
+    float32: the JAX package's extract_gradient_fields, through the sliced
+    value-and-gradient kernel in launches of `chunk` points."""
+    pts = torch.as_tensor(_box_points(bound_min, bound_max, resolution),
+                          device=params_device(params))
+    with torch.no_grad():
+        grads = torch.cat([query_value_and_grad(params, p, ucfg)[1]
+                           for p in pts.split(chunk)])
+    return grads.cpu().numpy().reshape((resolution,) * 3 + (3,))
+
+
 def extract_pointcloud(params, ucfg: UDFConfig, resolution: int = 128,
                        udf_threshold: float = 0.02, sampling_N: int = 50,
                        sampling_delta: float = 5e-3,
                        is_pointshift: bool = False, iters: int = 1,
                        is_linedirection: bool = False, seed: int = 42,
                        grid_chunk: int = GRID_CHUNK,
-                       point_batch: int = POINT_BATCH, trace=None):
+                       point_batch: int = POINT_BATCH, trace=None,
+                       group=None):
     """Edge point cloud from the UDF `params` (on the device the queries run
-    on). Returns (points (M, 3), line_directions (M, 3)) numpy float32."""
+    on). Returns (points (M, 3), line_directions (M, 3)) numpy float32;
+    under a `group`, on every rank."""
     with torch.no_grad():
         return _extract(params, ucfg, resolution, [float(udf_threshold)],
                         sampling_N, sampling_delta, is_pointshift, iters,
                         is_linedirection, seed, grid_chunk,
-                        int(point_batch), trace)[
+                        int(point_batch), trace, group)[
             float(udf_threshold)]
 
 
@@ -183,7 +254,8 @@ def extract_pointcloud_multi(params, ucfg: UDFConfig, resolution: int,
                              is_pointshift: bool = False, iters: int = 1,
                              is_linedirection: bool = False, seed: int = 42,
                              grid_chunk: int = GRID_CHUNK,
-                             point_batch: int = POINT_BATCH, trace=None):
+                             point_batch: int = POINT_BATCH, trace=None,
+                             group=None):
     """Extraction at K candidate thresholds for ONE grid + feature cost.
 
     Only the membership tests (grid mask, per-iteration keep) depend on the
@@ -197,14 +269,14 @@ def extract_pointcloud_multi(params, ucfg: UDFConfig, resolution: int,
                         sorted(float(t) for t in thresholds), sampling_N,
                         sampling_delta, is_pointshift, iters,
                         is_linedirection, seed, grid_chunk,
-                        int(point_batch), trace)
+                        int(point_batch), trace, group)
 
 
 def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
              is_pointshift, iters, is_linedirection, seed, grid_chunk,
-             point_batch, trace):
+             point_batch, trace, group):
     t_max = thresholds[-1]
-    near = grid_masks(params, ucfg, N, thresholds, grid_chunk, trace)
+    near = grid_masks(params, ucfg, N, thresholds, grid_chunk, trace, group)
 
     # superset candidates (t_max) + first feature sweep
     cand_idx = np.nonzero(near[-1])[0]
@@ -215,7 +287,7 @@ def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
     def sweep(pts, i, with_linedir):
         return _run_point_batches(params, ucfg, pts, seed, i, sampling_N,
                                   sampling_delta, with_linedir, point_batch,
-                                  trace)
+                                  trace, group)
 
     want_dirs_now = is_linedirection and not (is_pointshift and iters > 0)
     df, normals, line_dirs = sweep(xyz, 0, want_dirs_now)
@@ -244,5 +316,6 @@ def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
     return out
 
 
-__all__ = ["extract_pointcloud", "extract_pointcloud_multi", "grid_masks",
-           "grid_points", "GRID_CHUNK", "POINT_BATCH"]
+__all__ = ["extract_fields", "extract_gradient_fields", "extract_pointcloud",
+           "extract_pointcloud_multi", "grid_masks", "grid_points",
+           "GRID_CHUNK", "POINT_BATCH"]

@@ -193,7 +193,14 @@ def query_field(params, pts_flat, udf_cfg: UDFConfig):
 
 def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
                 cfg: RenderConfig, udf_cfg: UDFConfig, cos_anneal_ratio,
-                flip_saturation, background_rgb=None):
+                flip_saturation, background_rgb=None, group=None):
+    """One batch of rays at given samples. With a `group`
+    (parallel/mesh.py::RayGroup) the rays are this rank's rows of the
+    group's batch: the two eikonal terms are ratios of sums whose
+    denominators count the group's points inside the masks, so those
+    counts are summed over the ranks (one detached all-reduce) and each
+    rank's term is its share of the group's, which sums to it over the
+    ranks (the JAX package's sharded mean)."""
     batch, n = z_vals.shape
     ones = torch.ones((batch, 1), dtype=z_vals.dtype, device=z_vals.device)
 
@@ -263,11 +270,17 @@ def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
         inside_sphere = (pts_norm < 2.0).to(z_vals.dtype)
         near_surface = (udf < cfg.near_surface).to(z_vals.dtype)
 
+        n_relax, n_near = torch.sum(relax_inside_sphere), torch.sum(
+            near_surface)
+        if group is not None:
+            counts = group.all_reduce_sum(torch.stack([n_relax, n_near]))
+            n_relax, n_near = counts[0], counts[1]
+
     gradient_error_pt = (safe_l2norm(gradients, dim=-1) - 1.0) ** 2
     gradient_error = torch.sum(relax_inside_sphere * gradient_error_pt) / (
-        torch.sum(relax_inside_sphere) + 1e-5)
+        n_relax + 1e-5)
     gradient_error_near_surface = torch.sum(
-        near_surface * gradient_error_pt) / (torch.sum(near_surface) + 1e-5)
+        near_surface * gradient_error_pt) / (n_near + 1e-5)
 
     gradients_flip = (flip_sign[..., None] * gradients
                       if flip_sign is not None else gradients)
@@ -300,16 +313,21 @@ def render_core(params, rays_o, rays_d, z_vals, sample_dist: float,
 def render(params, rays_o, rays_d, near: float, far: float, depth_scale,
            generator, cfg: RenderConfig, udf_cfg: UDFConfig,
            cos_anneal_ratio=1.0, flip_saturation=0.0,
-           perturb_overwrite: float = -1.0, background_rgb=None):
+           perturb_overwrite: float = -1.0, background_rgb=None, group=None):
     """Render a batch of rays. params: {"udf", "variance", "beta"};
     depth_scale (B, 1); `generator` (on the rays' device) draws the
-    stratified jitter."""
+    stratified jitter. With a `group` (parallel/mesh.py::RayGroup) the
+    rays are this rank's rows of a batch of B x world rays: the jitter is
+    drawn for the whole batch and sliced, as every rank draws it, and
+    render_core sums the eikonal terms' counts over the ranks."""
     batch = rays_o.shape[0]
     sample_dist = (far - near) / cfg.n_samples
     perturb = cfg.perturb if perturb_overwrite < 0 else perturb_overwrite
-    z_vals = sampling.stratified_z_vals(generator, batch, near, far,
-                                        cfg.n_samples, perturb,
-                                        device=rays_o.device)
+    z_vals = sampling.stratified_z_vals(
+        generator, batch if group is None else batch * group.world, near,
+        far, cfg.n_samples, perturb, device=rays_o.device)
+    if group is not None:
+        z_vals = group.shard(z_vals)
 
     if cfg.n_importance > 0:
         sampler_cfg = sampler_config(cfg, udf_cfg)
@@ -330,7 +348,7 @@ def render(params, rays_o, rays_d, near: float, far: float, depth_scale,
 
     ret = render_core(params, rays_o, rays_d, z_vals, sample_dist, cfg,
                       udf_cfg, cos_anneal_ratio, flip_saturation,
-                      background_rgb=background_rgb)
+                      background_rgb=background_rgb, group=group)
     n_total = cfg.total_samples
     return {
         "udf": ret["udf"],

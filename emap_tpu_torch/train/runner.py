@@ -39,6 +39,15 @@ through the grid and sweep kernels, fits and merges lines and curves on the
 host, and, with `auto_threshold` or `fit_draws > 1`, picks the threshold and
 fit draw by the GT-free scorer (extract/autothresh.py). It writes the same
 four result files as the JAX package.
+
+With a `group` (parallel/mesh.py::RayGroup; the CLI makes one a rank when
+`train.multi_device` finds several devices) every rank holds the same
+state (the same seed and init), trains on its rows of each batch with the
+gradients summed over the ranks (train/step.py), renders its rows of each
+validation chunk, and takes its share of the extraction's grid and sweeps
+(extract/pointcloud.py); the rows are gathered back in order. Rank 0 alone
+writes: the run's files, checkpoints, validation images, logs, and the
+extraction's fit, selection and results.
 """
 
 from __future__ import annotations
@@ -122,12 +131,16 @@ class Runner:
     """UDF edge-field trainer."""
 
     def __init__(self, conf, mode: str = "train", is_continue: bool = False,
-                 device=None):
+                 device=None, group=None):
         use_fp32_matmuls()
         self.conf = conf
         self.mode = mode
         self.is_continue = is_continue
-        self.device = torch.device(device) if device else default_device()
+        self.group = group
+        if group is not None:
+            self.device = group.device
+        else:
+            self.device = torch.device(device) if device else default_device()
 
         self.base_exp_dir = os.path.join(conf["general.base_exp_dir"],
                                          str(conf["dataset.scan"]),
@@ -193,6 +206,12 @@ class Runner:
         self.captured_launches: dict = {}
         self.replayed_launches: dict = {}
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the run's files: rank 0, or the one
+        process without a group."""
+        return self.group is None or self.group.rank == 0
+
     # -- checkpoints -------------------------------------------------------
     def _ckpt_dir(self) -> str:
         return os.path.join(self.base_exp_dir, "checkpoints")
@@ -202,6 +221,8 @@ class Runner:
         if loss_val >= self.best_loss:
             return
         self.best_loss = loss_val
+        if not self.is_main:
+            return
         path = os.path.join(self._ckpt_dir(), "ckpt_best.npz")
         save_pytree(path, checkpoint_payload(self.state, self.best_loss))
         logger.info("saved checkpoint (best loss %.4f) -> %s", loss_val, path)
@@ -236,6 +257,8 @@ class Runner:
 
     def file_backup(self) -> None:
         """Snapshot the conf's recording dirs and the conf into the run."""
+        if not self.is_main:
+            return
         rec_dir = os.path.join(self.base_exp_dir, "recording")
         os.makedirs(rec_dir, exist_ok=True)
         for dir_name in self.conf.get_list("general.recording", []):
@@ -271,10 +294,11 @@ class Runner:
             self.conf.get_int("train.steps_per_dispatch", 0),
             self.report_freq, self.save_freq, self.val_freq, profile_steps)
         step_fn = build_train_step(self.tcfg, self.rcfg, self.ucfg,
-                                   self.scene.n_images)
+                                   self.scene.n_images, group=self.group)
         # built after the resume above: a graph holds the state's addresses
         chained = (build_chained_train_step(self.tcfg, self.rcfg, self.ucfg,
-                                            self.scene.n_images, chain)
+                                            self.scene.n_images, chain,
+                                            group=self.group)
                    if chain > 1 else None)
         loss_window: list = []
         loss_avg = None
@@ -361,6 +385,8 @@ class Runner:
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
 
+        if not self.is_main:
+            return
         if self.state.step < self.end_iter:
             payload = checkpoint_payload(self.state, self.best_loss)
             payload["generator"] = self.state.generator.get_state().numpy()
@@ -384,6 +410,8 @@ class Runner:
 
     def _stop_profile(self, prof) -> None:
         prof.stop()
+        if not self.is_main:
+            return
         out = os.path.join(self.base_exp_dir, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
@@ -410,7 +438,10 @@ class Runner:
         """One view rendered in `batch_size`-ray chunks under no_grad, with
         flip_saturation 0 as the JAX package validates: (edge (h, w),
         depth (h, w), normals (h*w, 3)) numpy. The rays are padded to whole
-        chunks as in the JAX package (origin 0, direction +z, scale 1)."""
+        chunks as in the JAX package (origin 0, direction +z, scale 1).
+        Under a group each rank renders its rows of every chunk and the
+        rows are gathered back in order (the JAX package's sharded
+        validation)."""
         rays_o, rays_d, depth_scale = gen_rays_at(self.scene, idx,
                                                   resolution_level)
         h, w, _ = rays_o.shape
@@ -431,6 +462,13 @@ class Runner:
                                    device=self.device)
 
         o, d, ds = put(flat_o), put(flat_d), put(flat_ds)
+        group = self.group
+        if group is not None:
+            # (chunks, world, rows a rank, k) -> this rank's rows of each
+            o, d, ds = (t.reshape(-1, group.world, chunk // group.world,
+                                  t.shape[-1])[:, group.rank].reshape(
+                                      -1, t.shape[-1]) for t in (o, d, ds))
+            chunk //= group.world
         step = int(self.state.step)
         anneal = schedules.cos_anneal_ratio(step, self.tcfg.anneal_end)
         gen = torch.Generator(device=self.device).manual_seed(step)
@@ -438,12 +476,12 @@ class Runner:
         n_total = self.rcfg.total_samples
         edges, depths, normals = [], [], []
         with torch.no_grad():
-            for c in range(0, len(flat_o), chunk):
+            for c in range(0, len(o), chunk):
                 out = render(self.state.params, o[c: c + chunk],
                              d[c: c + chunk], self.near, self.far,
                              ds[c: c + chunk], gen, self.rcfg, self.ucfg,
                              cos_anneal_ratio=anneal, flip_saturation=0.0,
-                             background_rgb=bg)
+                             background_rgb=bg, group=group)
                 edges.append(out["edge"])
                 depths.append(out["depth"])
                 normals.append(torch.sum(
@@ -451,7 +489,13 @@ class Runner:
                     dim=1))
 
         def fetch(parts):
-            return torch.cat(parts)[:n].cpu().numpy()
+            rows = torch.cat(parts)
+            if group is not None:
+                # (world, chunks, rows a rank, k) back to the chunks' order
+                k = rows.shape[-1]
+                rows = group.gather_rows(rows).reshape(
+                    group.world, -1, chunk, k).transpose(0, 1).reshape(-1, k)
+            return rows[:n].cpu().numpy()
 
         return (fetch(edges).reshape(h, w), fetch(depths).reshape(h, w),
                 fetch(normals))
@@ -459,12 +503,16 @@ class Runner:
     def validate(self, idx: int = -1, resolution_level: int = -1) -> dict:
         """Render one view (a random one unless `idx` is given) and write
         edge_maps/ (rendered | GT), normals/ (camera frame) and depths/
-        (JET) PNGs named <step>_<idx>.png; returns {kind: path}."""
+        (JET) PNGs named <step>_<idx>.png; returns {kind: path}. Under a
+        group every rank renders its share and rank 0 writes (the others
+        return {})."""
         if idx < 0:
             idx = int(self.val_rng.randint(self.scene.n_images))
         if resolution_level < 0:
             resolution_level = self.validate_resolution_level
         edge, depth, normals = self.render_image(idx, resolution_level)
+        if not self.is_main:
+            return {}
         h, w = edge.shape
         name = f"{int(self.state.step):08d}_{idx}.png"
         paths = {}
@@ -499,7 +547,10 @@ class Runner:
         are the JAX package's (emap_tpu/train/runner.py::extract_edge).
         `platform`: "" extracts on the runner's device, "cpu" on the CPU
         (the kernels' plain versions); any other value raises. Stage times
-        and sizes land in `self.extract_trace`."""
+        and sizes land in `self.extract_trace`. Under a group every rank
+        takes its share of the grid and the sweeps on its device and rank 0
+        alone fits, selects and writes (the others return None); with
+        `platform = "cpu"` rank 0 extracts alone."""
         if platform not in ("", "cpu"):
             raise ValueError(f"edge_extraction.platform {platform!r}: the "
                              'port extracts on "" (the runner\'s device) or '
@@ -509,15 +560,18 @@ class Runner:
         params = {k: {n: t.detach().to(device) for n, t in layer.items()}
                   for k, layer in self.state.params["udf"].items()}
         self.extract_trace = []
+        group = self.group if device == self.device else None
+        if group is None and not self.is_main:
+            return None
         return self._extract_edge_impl(
             params, resolution, udf_threshold, sampling_N, sampling_delta,
             is_pointshift, iters, is_linedirection, visible_checking,
-            auto_threshold, fit_draws)
+            auto_threshold, fit_draws, group)
 
     def _extract_edge_impl(self, params, resolution, udf_threshold,
                            sampling_N, sampling_delta, is_pointshift, iters,
                            is_linedirection, visible_checking,
-                           auto_threshold, fit_draws=1) -> dict:
+                           auto_threshold, fit_draws=1, group=None):
         from emap_tpu_torch.extract.pointcloud import (
             extract_pointcloud,
             extract_pointcloud_multi,
@@ -528,7 +582,8 @@ class Runner:
         extract_kw = dict(resolution=resolution, sampling_N=sampling_N,
                           sampling_delta=sampling_delta,
                           is_pointshift=is_pointshift, iters=iters,
-                          is_linedirection=is_linedirection, trace=trace)
+                          is_linedirection=is_linedirection, trace=trace,
+                          group=group)
 
         def fit(points, line_dirs, seed=42):
             ld_colors = (line_dirs + 1.0) / 2.0
@@ -565,6 +620,8 @@ class Runner:
             # one shared grid + feature + shift pass serves every candidate
             multi = timed("pointcloud", lambda: extract_pointcloud_multi(
                 params, self.ucfg, thresholds=candidates, **extract_kw))
+            if not self.is_main:
+                return None
             cache: dict = {}
 
             def edge_dict_at(thr: float, seed: int = 42) -> dict:
@@ -602,6 +659,8 @@ class Runner:
         else:
             points, line_dirs = timed("pointcloud", lambda: extract_pointcloud(
                 params, self.ucfg, udf_threshold=udf_threshold, **extract_kw))
+            if not self.is_main:
+                return None
             points, ld_colors, pred_points, edge_dict = timed(
                 "fit_score", lambda: fit(points, line_dirs))
 

@@ -91,19 +91,41 @@ def edge_loss_fn(pred, target, loss_type: str):
     raise ValueError(f"unknown loss_type {loss_type!r}")
 
 
+# Metrics that are means over the rays: under a group, each rank's mean
+# over its equal share, summed over the ranks and divided by the world.
+RAY_MEANS = ("udf_min", "udf_mean", "weight_sum", "weight_sum_fg_bg",
+             "sparse_error", "mse")
+# Metrics that are already each rank's share of the group's value.
+SHARES = ("loss", "edge_loss", "gradient_error", "gradient_error_near_surface")
+
+
 def loss_and_grads(params, batch, generator, tcfg: TrainConfig,
                    rcfg: RenderConfig, ucfg: UDFConfig, cos_anneal_ratio,
-                   flip_saturation):
+                   flip_saturation, group=None):
     """(loss, aux, grads) of the step's loss at `params` for a ray batch;
     grads has the params' tree layout (zeros for unused leaves). The render
     jitter is drawn from `generator`; the two schedules are python floats
-    or 0-d tensors on the rays' device."""
+    or 0-d tensors on the rays' device.
+
+    With a `group` (parallel/mesh.py::RayGroup) the batch is this rank's
+    rows of the group's: the loss differentiated is this rank's share of
+    the group's loss (the edge loss's mean over the group's rays, the
+    eikonal terms over the group's masks, render_core), and ONE flat
+    all-reduce sums the gradient tree and the metric shares over the ranks,
+    so every rank returns the group's loss, metrics and gradients (the
+    JAX package's psum). variance, beta and gamma are replicated scalars
+    and stay out of the sum. At world 1 each share is the whole (a factor
+    of exactly 1.0) and the all-reduce is the identity, so the numbers
+    equal the step without a group bit for bit."""
     out = render(params, batch["rays_o"], batch["rays_d"], tcfg.near,
                  tcfg.far, batch["depth_scale"], generator, rcfg, ucfg,
                  cos_anneal_ratio=cos_anneal_ratio,
-                 flip_saturation=flip_saturation)
+                 flip_saturation=flip_saturation, group=group)
     true_edge = batch["edge"]
     e_loss = edge_loss_fn(out["edge"], true_edge, tcfg.loss_type)
+    share = 1.0 if group is None else 1.0 / group.world
+    if group is not None:
+        e_loss = e_loss * share
     loss = (e_loss * tcfg.edge_weight
             + out["gradient_error_near_surface"] * tcfg.igr_ns_weight
             + out["gradient_error"] * tcfg.igr_weight)
@@ -112,14 +134,12 @@ def loss_and_grads(params, batch, generator, tcfg: TrainConfig,
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
-    it = iter(grads)
-    grad_tree = tree_map(lambda _: next(it), params)
 
     with torch.no_grad():
-        mse = torch.mean((out["edge"] - true_edge) ** 2)
         aux = {
+            "loss": loss,
             "edge_loss": e_loss * tcfg.edge_weight,
-            "psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse)),
+            "mse": torch.mean((out["edge"] - true_edge) ** 2),
             "gradient_error": out["gradient_error"],
             "gradient_error_near_surface": out["gradient_error_near_surface"],
             "variance": torch.mean(out["variance"]),
@@ -132,7 +152,20 @@ def loss_and_grads(params, batch, generator, tcfg: TrainConfig,
             "sparse_error": out["sparse_error"],
         }
         aux = {k: v.detach() for k, v in aux.items()}
-    return loss.detach(), aux, grad_tree
+        if group is not None:
+            summed = SHARES + RAY_MEANS
+            flat = torch.cat(
+                [g.reshape(-1) for g in grads]
+                + [torch.stack([aux[k] * share if k in RAY_MEANS else aux[k]
+                                for k in summed])])
+            group.all_reduce_sum(flat)
+            parts = flat.split([g.numel() for g in grads] + [len(summed)])
+            grads = [p.view_as(g) for p, g in zip(parts, grads)]
+            aux.update(zip(summed, parts[-1].unbind()))
+        aux["psnr"] = 20.0 * torch.log10(1.0 / torch.sqrt(aux.pop("mse")))
+    it = iter(grads)
+    grad_tree = tree_map(lambda _: next(it), params)
+    return aux.pop("loss"), aux, grad_tree
 
 
 def learning_rates(step: int, tcfg: TrainConfig):
@@ -209,26 +242,36 @@ def _label_trees(params, state: TrainState, inputs: StepInputs):
 
 def step_body(state: TrainState, pool: RayPool, inputs: StepInputs,
               tcfg: TrainConfig, rcfg: RenderConfig, ucfg: UDFConfig,
-              sample_fn=None) -> dict:
+              sample_fn=None, group=None) -> dict:
     """The device work of one step, updating the state's tensors in place
     and reading the step's values from `inputs` only: no host sync, no
     copy from the host, so a CUDA graph can hold it. Returns the metrics
     as 0-d device tensors. `state.step` is the caller's to advance.
 
+    With a `group` (parallel/mesh.py::RayGroup) this rank takes its rows
+    of the `batch_size` batch and the group's summed gradients
+    (loss_and_grads), so every rank makes the same update.
+
     `sample_fn` (tests only): `(state, pool) -> (batch, img_idx)` replaces
-    the ray sampling, so a prescribed batch goes through the unchanged
-    step."""
+    the ray sampling, so a prescribed batch (the group's, under a group)
+    goes through the unchanged step."""
+    if tcfg.batch_size % (1 if group is None else group.world):
+        raise ValueError(f"batch_size {tcfg.batch_size} does not split over "
+                         f"{group.world} ranks")
     if sample_fn is not None:
         batch, _ = sample_fn(state, pool)
+        if group is not None:
+            batch = {k: group.shard(v) for k, v in batch.items()}
     else:
         batch = sample_rays(pool, inputs.img_idx, state.generator,
                             tcfg.batch_size,
-                            importance_sample=tcfg.importance_sample)
+                            importance_sample=tcfg.importance_sample,
+                            group=group)
 
     loss, aux, grads = loss_and_grads(state.params, batch, state.generator,
                                       tcfg, rcfg, ucfg,
                                       inputs.cos_anneal_ratio,
-                                      inputs.flip_saturation)
+                                      inputs.flip_saturation, group)
     lr_tree, mask_tree = _label_trees(state.params, state, inputs)
     adam_update(state.params, grads, state.opt, lr_tree, mask_tree)
 
@@ -249,12 +292,13 @@ def step_body(state: TrainState, pool: RayPool, inputs: StepInputs,
 
 def train_step(state: TrainState, pool: RayPool, tcfg: TrainConfig,
                rcfg: RenderConfig, ucfg: UDFConfig, n_images: int,
-               sample_fn=None) -> dict:
+               sample_fn=None, group=None) -> dict:
     """One eager step, updating `state` in place. Returns the metrics as
     0-d device tensors."""
     inputs = StepInputs(state.generator.device)
     inputs.set(state.step, image_index(state, n_images), tcfg)
-    metrics = step_body(state, pool, inputs, tcfg, rcfg, ucfg, sample_fn)
+    metrics = step_body(state, pool, inputs, tcfg, rcfg, ucfg, sample_fn,
+                        group)
     state.step += 1
     return metrics
 
@@ -271,12 +315,13 @@ def unpack_metrics(vec) -> dict:
 
 
 def build_train_step(tcfg: TrainConfig, rcfg: RenderConfig, ucfg: UDFConfig,
-                     n_images: int, sample_fn=None):
+                     n_images: int, sample_fn=None, group=None):
     """train_step(state, pool) -> metrics dict, with the configs bound (the
-    counterpart of the JAX package's build_train_step)."""
+    counterpart of the JAX package's build_train_step; `group` is its
+    `mesh`)."""
     def step_fn(state: TrainState, pool: RayPool) -> dict:
         return train_step(state, pool, tcfg, rcfg, ucfg, n_images,
-                          sample_fn=sample_fn)
+                          sample_fn=sample_fn, group=group)
 
     return step_fn
 
@@ -307,14 +352,24 @@ class ChainedStep:
     counts the launches that the graph holds without running them, and a
     replay runs them without counting. `captured_launches` and
     `replayed_launches` keep both, so the kernels' runs are the wrappers'
-    counts less the one and plus the other."""
+    counts less the one and plus the other.
+
+    With a `group` (parallel/mesh.py::RayGroup, NCCL on the card) the
+    step's collectives are captured in the graph with the rest: the
+    warm-up step makes them once eagerly on the capture stream first, as
+    NCCL wants, and `collectives_per_step` counts those a replay runs. The
+    capture then runs in the thread-local capture mode, so that the
+    process group's watchdog thread may query its events meanwhile."""
 
     def __init__(self, tcfg: TrainConfig, rcfg: RenderConfig,
-                 ucfg: UDFConfig, n_images: int, chain: int, sample_fn=None):
+                 ucfg: UDFConfig, n_images: int, chain: int, sample_fn=None,
+                 group=None):
         if chain < 1:
             raise ValueError(f"chain must be at least 1, got {chain}")
         self.tcfg, self.rcfg, self.ucfg = tcfg, rcfg, ucfg
         self.n_images, self.chain, self.sample_fn = n_images, chain, sample_fn
+        self.group = group
+        self.collectives_per_step = 0
         self.graph = None
         self.inputs = None
         self.vec = None  # the graph's metric vector
@@ -325,7 +380,7 @@ class ChainedStep:
 
     def _body(self, state, pool) -> dict:
         return step_body(state, pool, self.inputs, self.tcfg, self.rcfg,
-                         self.ucfg, self.sample_fn)
+                         self.ucfg, self.sample_fn, self.group)
 
     def __call__(self, state: TrainState, pool: RayPool) -> torch.Tensor:
         dev = state.generator.device
@@ -335,7 +390,7 @@ class ChainedStep:
             for k in range(self.chain):
                 rows[k] = pack_metrics(train_step(
                     state, pool, self.tcfg, self.rcfg, self.ucfg,
-                    self.n_images, self.sample_fn))
+                    self.n_images, self.sample_fn, self.group))
             return rows
         first = 0
         if self.graph is None or self._state is not state:
@@ -376,8 +431,12 @@ class ChainedStep:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         before = launch_counts()
-        with torch.cuda.graph(graph, stream=side):
+        collectives = 0 if self.group is None else self.group.collectives
+        mode = "global" if self.group is None else "thread_local"
+        with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
             vec = pack_metrics(self._body(state, pool))
+        if self.group is not None:
+            self.collectives_per_step = self.group.collectives - collectives
         self._per_replay = {k: v - before[k]
                             for k, v in launch_counts().items()}
         for name, n in self._per_replay.items():
@@ -394,7 +453,7 @@ class ChainedStep:
 
 def build_chained_train_step(tcfg: TrainConfig, rcfg: RenderConfig,
                              ucfg: UDFConfig, n_images: int, chain: int,
-                             sample_fn=None) -> ChainedStep:
+                             sample_fn=None, group=None) -> ChainedStep:
     """`chain` steps a call, with the configs bound (the counterpart of the
     JAX package's build_chained_train_step): see ChainedStep."""
-    return ChainedStep(tcfg, rcfg, ucfg, n_images, chain, sample_fn)
+    return ChainedStep(tcfg, rcfg, ucfg, n_images, chain, sample_fn, group)

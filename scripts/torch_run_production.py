@@ -33,7 +33,8 @@ table (`threshold_selection`: the picked threshold and each candidate's
 row, f3d included, as scripts/run_production.py's report has it). The
 conf's matmul tiers apply as it sets them (confs/ABC.conf: the training field query and the
 up-sampler at the bf16 tier "default", extraction at "high"); the report's
-`tiers` gives what the training run resolved them to.
+`tiers` gives what the training run resolved them to. The run takes one
+card (one process) whatever the host has, as the gates were measured.
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ def main() -> dict:
     if start < STOP_AT < end_iter:
         argv += ["--stop_at", str(STOP_AT)]
     t0, before = time.time(), launch_counts()
-    runner = cli_main(argv)
+    runner = cli_main(argv, n_devices=1)
     (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
         runner.timeline[-1]
     parts.append({"from": start, "to": int(runner.state.step),
@@ -184,7 +185,7 @@ def main() -> dict:
         torch.cuda.reset_peak_memory_stats()
     t1, before = time.time(), launch_counts()
     runner = cli_main(["--conf", conf_path, "--mode", "extract_edge",
-                       "--device", DEVICE])
+                       "--device", DEVICE], n_devices=1)
     extract_wall = time.time() - t1
     extract_launches = since(before)
 

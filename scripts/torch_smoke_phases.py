@@ -5,6 +5,8 @@ that are slow to reach or need repeating:
     python3 scripts/torch_smoke_phases.py graph [N]    # phase 8, N times
     python3 scripts/torch_smoke_phases.py determinism  # the eager step
     python3 scripts/torch_smoke_phases.py confs        # phases 10 and 11
+    python3 scripts/torch_smoke_phases.py parallel     # phase 12
+    python3 scripts/torch_smoke_phases.py ranks        # its multi-rank runs
 
 `graph` trains the smoke conf's 20 steps through the CLI (phase 4) and
 runs phase 8 (CUDA graph replays against eager steps, bit for bit) N
@@ -14,6 +16,12 @@ stream, with each up-sampler, and lists the ops
 `torch.use_deterministic_algorithms` names as nondeterministic in it.
 `confs` runs phase 10 (Replica.conf's width) and phase 11 (DTU.conf's
 extraction block) with the grid value kernel's 256^3 rows of phase 3.
+`parallel` trains phase 4's run, writes phase 6's fixture checkpoint and
+runs phase 12 (the multi-device path: a NCCL group of world 1 in the
+process, and on a machine with two cards or more the spawned multi-rank
+CLI runs). `ranks` runs only those multi-rank CLI runs (2 and 4 ranks
+against one process), so that a four-card machine's time goes to what
+needs four cards.
 A failed check is printed and the run goes on; the exit code is 1 if any
 failed. Run from the repository root; needs the card.
 """
@@ -46,7 +54,8 @@ def graph(tmp: str, smi: str, n: int) -> bool:
     import chip_smoke as cs
     from emap_tpu_torch import cli
 
-    runner = cli.main(["--conf", cs.write_run_conf(tmp), "--mode", "train"])
+    runner = cli.main(["--conf", cs.write_run_conf(tmp), "--mode", "train"],
+                      n_devices=1)
     passed = [attempt(f"graph attempt {i}",
                       lambda: cs.graph_phase(runner, smi, float("inf")))
               for i in range(n)]
@@ -123,6 +132,29 @@ def confs(tmp: str, smi: str) -> bool:
                                                  chunk["3xtf32"], smi))])
 
 
+def parallel(tmp: str, smi: str) -> bool:
+    import chip_smoke as cs
+    from emap_tpu_torch import cli
+
+    conf_path = cs.write_run_conf(tmp)
+    runner = cli.main(["--conf", conf_path, "--mode", "train"], n_devices=1)
+    cs.fixture_checkpoint(conf_path, runner.ucfg)
+    return attempt("phase 12", lambda: cs.parallel_phase(runner, conf_path,
+                                                         tmp, smi))
+
+
+def ranks(tmp: str, smi: str) -> bool:
+    import torch
+
+    import chip_smoke as cs
+
+    cs.check(torch.cuda.device_count() >= 2, "the multi-rank runs need 2 "
+             "cards or more")
+    conf_path = cs.write_run_conf(tmp)
+    return attempt("phase 12's multi-rank runs",
+                   lambda: cs.multi_rank_check(conf_path, tmp, smi))
+
+
 def main() -> int:
     import torch
 
@@ -145,9 +177,13 @@ def main() -> int:
             ok = determinism(tmp)
         elif what == "confs":
             ok = confs(tmp, smi)
+        elif what == "parallel":
+            ok = parallel(tmp, smi)
+        elif what == "ranks":
+            ok = ranks(tmp, smi)
         else:
             raise SystemExit(f"unknown phase set {what!r}: graph, "
-                             "determinism or confs")
+                             "determinism, confs, parallel or ranks")
     return 0 if ok else 1
 
 
