@@ -105,7 +105,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
      where the machine has two cards or more, phase 4's run through the
      CLI on 2 (and 4) spawned NCCL ranks against one process (losses rtol
      1e-4, parameters rtol 2e-4 / atol 2e-6, ranks bit-identical), else a
-     line saying it was not run.
+     line saying it was not run;
+ 13. the JAX package's last public functions: a 400x400, 24-view PidiNet
+     cube scene with 3-pixel lines (the port's OpenCV thick anti-aliased
+     line) written and timed; REPLICA_ITER steps of confs/Replica.conf on
+     it through the CLI (chain 5, one validation), the launches of #1a and
+     #2 reckoned as in phase 10 and every loss finite; udf_gradient at
+     GRAD_N points at ABC and at Replica width: bit-equal to
+     udf_value_and_gradient's gradient, within KERNEL_RTOL of the sliced
+     3xTF32 value-and-gradient kernel up to the abs head's sign, and a
+     loss on it back-propagating to finite parameter gradients;
+     get_flow_vis on a 400x400 angle field and semantic_color_map, their
+     shapes and dtypes; and cv2 absent from sys.modules.
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it: the main path (phases 4 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
@@ -214,8 +225,10 @@ F20_MIN = 0.95
 GRAPH_CHAIN = 20
 # Phase 9: steps of each training route's run (one chained call).
 ROUTE_ITER = 5
-# Phase 10: steps of the Replica conf's run (chain 5).
+# Phases 10 and 13: steps of the Replica conf's run (chain 5).
 REPLICA_ITER = 10
+# Phase 13: points of the udf_gradient check.
+GRAD_N = 1 << 16
 # Phase 11's fixture: the cube field regressed with the squared error
 # relative to (distance + DTU_FIXTURE_REL). DTU.conf's menu reaches down to
 # a 0.005 threshold on a 256^3 grid, which needs the field's valley within
@@ -1406,22 +1419,24 @@ def pidinet_scene(tmp: str) -> str:
     return data_dir
 
 
-def conf_copy(name: str, tmp: str, data_dir: str, **overrides) -> str:
+def conf_copy(name: str, tmp: str, data_dir: str, tag: str = "",
+              **overrides) -> str:
     """A copy of confs/<name>.conf on the PidiNet scene, in an experiment
-    directory of its own, with `far` 4.5 (the scene's cameras orbit at
-    radius 2.2, as in scripts/torch_run_production.py) and `overrides`."""
+    directory of its own (named after `name` and `tag`), with `far` 4.5
+    (the scene's cameras orbit at radius 2.2, as in
+    scripts/torch_run_production.py) and `overrides`."""
     from emap_tpu_torch import config
 
     conf = config.parse_file(os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "confs", f"{name}.conf"))
-    conf["general.base_exp_dir"] = os.path.join(tmp, f"{name}_exp")
+    conf["general.base_exp_dir"] = os.path.join(tmp, f"{name}{tag}_exp")
     conf["general.recording"] = []
     conf["dataset.data_dir"] = data_dir
     conf["dataset.scan"] = "cube000"
     conf["dataset.far"] = 4.5
     for k, v in overrides.items():
         conf[k] = v
-    path = os.path.join(tmp, f"{name}_smoke.conf")
+    path = os.path.join(tmp, f"{name}{tag}_smoke.conf")
     with open(path, "w") as f:
         f.write(conf.to_hocon())
     return path
@@ -1430,6 +1445,57 @@ def conf_copy(name: str, tmp: str, data_dir: str, **overrides) -> str:
 def renamed(row: dict, suffix: str) -> dict:
     row["name"] = f"{row['name']}/{suffix}"
     return row
+
+
+def replica_train_run(path: str, label: str, smi: str) -> tuple:
+    """REPLICA_ITER steps of a copy of confs/Replica.conf (chain 5: a
+    warm-up step, a capture, replays) with one validation, through the CLI:
+    the tiers the conf resolves to, the training kernels' runs reckoned
+    (#2 once a step, #1a once a step and once a validation chunk, nothing
+    else) and every loss finite. Returns (runner, launches, keys)."""
+    import torch
+
+    from emap_tpu_torch import cli
+
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = cli.main(["--conf", path, "--mode", "train"], n_devices=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ran(runner)
+    keys = train_keys(runner)
+    h, w = (runner.scene.H // runner.validate_resolution_level,
+            runner.scene.W // runner.validate_resolution_level)
+    val_chunks = -(-h * w // runner.batch_size)
+    losses = [r["loss"] for r in runner.history]
+    (s0, t_first), (s1, t_last) = runner.timeline[1], runner.timeline[-1]
+    print(f"{label}: {REPLICA_ITER} steps and one validation through "
+          f"emap_tpu_torch.cli in {wall:.1f} s at the tiers {runner.tiers}; "
+          f"{1e3 * (t_last - t_first) / (s1 - s0):.2f} ms/step over steps "
+          f"{s0 + 1}-{s1} on {smi}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, {val_chunks} of "
+          f"them validation chunks; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    check(runner.tiers == {"field": "default", "adjoint": "default",
+                           "sampler": "default", "extraction": "high",
+                           "route": "kernels"},
+          f"Replica.conf resolved to the tiers {runner.tiers}")
+    check(runner.replayed_launches.get(keys["mlp_train_bwd"], 0) > 0,
+          f"the {label} run did not go through the kernels and the graph")
+    check(runner.state.step == REPLICA_ITER and len(losses) == REPLICA_ITER
+          and all(map(math.isfinite, losses)),
+          f"{label} run: step {runner.state.step}, losses {losses}")
+    check(launches[keys["mlp_train_bwd"]] == REPLICA_ITER,
+          f"{keys['mlp_train_bwd']} ran {launches[keys['mlp_train_bwd']]} "
+          f"times in {REPLICA_ITER} steps")
+    check(launches[keys["mlp_value_and_grad"]] == REPLICA_ITER + val_chunks,
+          f"{keys['mlp_value_and_grad']} ran "
+          f"{launches[keys['mlp_value_and_grad']]} times, not "
+          f"{REPLICA_ITER} steps + {val_chunks} validation chunks")
+    others = {k: v for k, v in launches.items()
+              if v and k not in keys.values()}
+    check(not others, f"the {label} run launched other kernels: {others}")
+    return runner, launches, keys
 
 
 def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
@@ -1448,7 +1514,7 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
     import numpy as np
     import torch
 
-    from emap_tpu_torch import cli, config
+    from emap_tpu_torch import config
     from emap_tpu_torch.extract import pointcloud
     from emap_tpu_torch.fields.udf import UDFConfig
     from emap_tpu_torch.kernels import mlp_query
@@ -1467,47 +1533,10 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
         rucfg, n, (GRID_CHUNK_N,))]
     row_of = {r["name"]: r for r in rows}
 
-    zero_counts()
-    t0 = time.perf_counter()
-    runner = cli.main(["--conf", path, "--mode", "train"], n_devices=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ran(runner)
-    keys = train_keys(runner)
-    h, w = (runner.scene.H // runner.validate_resolution_level,
-            runner.scene.W // runner.validate_resolution_level)
-    val_chunks = -(-h * w // runner.batch_size)
-    losses = [r["loss"] for r in runner.history]
-    (s0, t_first), (s1, t_last) = runner.timeline[1], runner.timeline[-1]
-    print(f"replica: {REPLICA_ITER} steps and one validation through "
-          f"emap_tpu_torch.cli in {wall:.1f} s at the tiers {runner.tiers}; "
-          f"{1e3 * (t_last - t_first) / (s1 - s0):.2f} ms/step over steps "
-          f"{s0 + 1}-{s1} on {smi}; launches "
-          f"{ {k: v for k, v in launches.items() if v} }, {val_chunks} of "
-          f"them validation chunks; losses "
-          f"{[round(x, 5) for x in losses]}", flush=True)
-    check(runner.tiers == {"field": "default", "adjoint": "default",
-                           "sampler": "default", "extraction": "high",
-                           "route": "kernels"},
-          f"Replica.conf resolved to the tiers {runner.tiers}")
-    check(runner.replayed_launches.get(keys["mlp_train_bwd"], 0) > 0,
-          "the Replica run did not go through the kernels and the graph")
-    check(runner.state.step == REPLICA_ITER and len(losses) == REPLICA_ITER
-          and all(map(math.isfinite, losses)),
-          f"Replica run: step {runner.state.step}, losses {losses}")
-    check(launches[keys["mlp_train_bwd"]] == REPLICA_ITER,
-          f"{keys['mlp_train_bwd']} ran {launches[keys['mlp_train_bwd']]} "
-          f"times in {REPLICA_ITER} steps")
-    check(launches[keys["mlp_value_and_grad"]] == REPLICA_ITER + val_chunks,
-          f"{keys['mlp_value_and_grad']} ran "
-          f"{launches[keys['mlp_value_and_grad']]} times, not "
-          f"{REPLICA_ITER} steps + {val_chunks} validation chunks")
-    others = {k: v for k, v in launches.items()
-              if v and k not in keys.values()}
-    check(not others, f"the Replica run launched other kernels: {others}")
+    runner, launches, keys = replica_train_run(path, "replica", smi)
     for key in keys.values():
         row_of[f"{key}/multires6"]["launches"] = launches[key]
-    first_step_check(path, losses[0])
+    first_step_check(path, runner.history[0]["loss"])
 
     # the conf's extraction device stages on the trained field
     ee = conf.get_config("edge_extraction")
@@ -1927,6 +1956,110 @@ def parallel_phase(runner, conf_path: str, tmp: str, smi: str) -> None:
     multi_rank_check(conf_path, tmp, smi)
 
 
+def gradient_check(ucfg, label: str) -> None:
+    """udf_gradient on GRAD_N points of a field at ucfg's width on the card:
+    the same bits as udf_value_and_gradient's gradient; against the sliced
+    value-and-gradient kernel (#1b) at the 3xTF32 tier within KERNEL_RTOL
+    of the block's largest, up to the abs head's sign; and a loss on it
+    back-propagates to finite parameter gradients."""
+    import torch
+
+    from emap_tpu_torch.fields.udf import (init_udf_params, udf_gradient,
+                                           udf_value_and_gradient)
+    from emap_tpu_torch.kernels import mlp_query
+
+    ucfg = at_tier(ucfg, ("high", ""))
+    params = init_udf_params(torch.Generator().manual_seed(0), ucfg,
+                             device="cuda")
+    w, b = mlp_query.pack_weights(params, ucfg)
+    x = raw_points(torch.Generator(device="cuda").manual_seed(3), GRAD_N)
+    pts = x[:3].T.contiguous()
+    before = ran()
+    t0 = time.perf_counter()
+    grad = udf_gradient(params, pts, ucfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(ran() == before, f"{label}: udf_gradient launched a kernel")
+    udf, grad2 = udf_value_and_gradient(params, pts, ucfg)
+    check(grad.shape == (GRAD_N, 3) and torch.equal(grad, grad2),
+          f"{label}: udf_gradient differs from udf_value_and_gradient's "
+          f"gradient")
+    kern = mlp_query.value_and_grad_sliced(x.contiguous(), w.contiguous(),
+                                           b.contiguous(), ucfg)
+    got = {"udf": udf.detach(), "grad": grad.detach().T}
+    want = {"udf": kern[0], "grad": kern[1][:3]}  # rows 3-7 are padding
+    got, flips = head_signs(got, want, KERNEL_RTOL)
+    _, rel, worst = errors(got, want)
+    leaves = [t.requires_grad_(True) for layer in params.values()
+              for t in layer.values()]
+    g = udf_gradient(params, pts, ucfg)
+    loss = ((torch.linalg.norm(g, dim=-1) - 1.0) ** 2).mean()
+    pgrads = torch.autograd.grad(loss, leaves)
+    finite = all(bool(torch.isfinite(t).all()) for t in pgrads)
+    print(f"{label}: udf_gradient at {GRAD_N} points in {1e3 * wall:.1f} ms"
+          f" (first call), bit-equal to udf_value_and_gradient's; against "
+          f"{mlp_query.TIER_NAMES[mlp_query.kernel_tier(ucfg.precision)]} "
+          f"value_and_grad_sliced max rel err {rel:.3e} in block {worst} "
+          f"(tolerance {KERNEL_RTOL:g}), {flips} points of opposite head "
+          f"sign; eikonal loss {float(loss.detach()):.5f}, parameter "
+          f"gradients finite: {finite}", flush=True)
+    check(rel <= KERNEL_RTOL, f"{label}: udf_gradient disagrees with the "
+          f"sliced kernel: {rel:.3e} in block {worst}")
+    check(finite, f"{label}: non-finite parameter gradients through "
+          f"udf_gradient")
+
+
+def public_functions_phase(tmp: str, ucfg, smi: str) -> None:
+    """Phase 13: the JAX package's last public functions on the card. A
+    400x400, 24-view PidiNet cube scene with 3-pixel lines (OpenCV's thick
+    anti-aliased line, ported) is written and timed; REPLICA_ITER steps of
+    confs/Replica.conf train on it through the CLI (chain 5) with the
+    launches reckoned and every loss finite (replica_train_run);
+    udf_gradient is held at ABC and at Replica width (gradient_check);
+    get_flow_vis and semantic_color_map run; and no module of the run has
+    imported cv2."""
+    import numpy as np
+
+    from emap_tpu_torch import config
+    from emap_tpu_torch.data import make_synthetic_scene
+    from emap_tpu_torch.fields.udf import UDFConfig
+    from emap_tpu_torch.utils.vis import get_flow_vis, semantic_color_map
+
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(tmp, "data_thick")
+    t0 = time.perf_counter()
+    make_synthetic_scene(data_dir, scan="cube000", n_views=24, H=400, W=400,
+                         detector="PidiNet", line_px=3)
+    print(f"public: PidiNet scene with 3-pixel lines written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    path = conf_copy("Replica", tmp, data_dir, tag="_thick", **{
+        "train.end_iter": REPLICA_ITER, "train.report_freq": 5,
+        "train.save_freq": REPLICA_ITER, "train.val_freq": REPLICA_ITER})
+    runner, _, _ = replica_train_run(path, "public", smi)
+    del runner
+    rucfg = UDFConfig.from_conf(config.parse_file(path).get_config(
+        "model.udf_network"))
+    gradient_check(ucfg, "public abc")
+    gradient_check(rucfg, "public replica")
+
+    ang = np.random.default_rng(0).uniform(0.0, 2.0 * np.pi, (400, 400))
+    t0 = time.perf_counter()
+    flow = get_flow_vis(ang, magnitude=2.0)
+    wall = time.perf_counter() - t0
+    cmap = semantic_color_map()
+    print(f"public: get_flow_vis of a 400x400 field in {1e3 * wall:.1f} ms, "
+          f"{flow.shape} {flow.dtype}, {len(np.unique(flow[..., 0]))} red "
+          f"levels; semantic_color_map {cmap.shape} {cmap.dtype}", flush=True)
+    check(flow.shape == (400, 400, 3) and flow.dtype == np.uint8,
+          f"get_flow_vis gave {flow.shape} {flow.dtype}")
+    check(cmap.shape == (256, 3) and cmap.dtype == np.float64
+          and bool(((cmap >= 0) & (cmap < 1)).all()),
+          f"semantic_color_map gave {cmap.shape} {cmap.dtype}")
+    check("cv2" not in sys.modules, "a module of the port imported cv2")
+    print(f"public: phase 13 in {time.perf_counter() - t_phase:.1f} s; cv2 "
+          f"not imported", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2056,6 +2189,7 @@ def main() -> int:
         rows += dtu_phase(tmp, data_pidinet, ucfg, chunk_rows["3xtf32"],
                           smi)
         parallel_phase(runner, conf_path, tmp, smi)
+        public_functions_phase(tmp, ucfg, smi)
 
     idle = [row["name"] for row in rows if not row["launches"]]
     check(not idle, f"no path launched {idle}")

@@ -4,8 +4,8 @@ The wireframe of a cube (or three rings) is projected into 2D edge maps
 from cameras on a sphere and written in the reference data layout
 (meta_data.json + edge_DexiNed/ + color/), so the production loader reads
 it. Lines are drawn by `draw_lines_aa`, a numpy port of OpenCV's
-thickness-1 anti-aliased line (`cv2.line(..., 1, cv2.LINE_AA)`, which the
-JAX package draws with), pixel for pixel; the images are written with the
+anti-aliased line of any thickness (`cv2.line(..., t, cv2.LINE_AA)`, which
+the JAX package draws with), pixel for pixel; the images are written with the
 port's own PNG codec, so the files' bytes differ from cv2's while the
 decoded pixels are equal. The analytic ground-truth samplers score an
 extraction against the drawn wireframe.
@@ -117,24 +117,17 @@ def _clip_lines(width, height, x1, y1, x2, y2):
     return (c1 | c2) == 0, x1, y1, x2, y2
 
 
-def draw_lines_aa(img: np.ndarray, p1, p2, color: int = 255) -> None:
-    """Draw segments p1[i] -> p2[i] ((N, 2) integer pixel (x, y)) into the
-    C-contiguous uint8 (H, W) `img` in place, one after the other, exactly
-    as N calls of `cv2.line(img, p1[i], p2[i], color, 1, cv2.LINE_AA)`
-    would.
+def _line_aa_events(width: int, height: int, x1, y1, x2, y2):
+    """OpenCV's LineAA for the 16.16 fixed-point segments (x1, y1) ->
+    (x2, y2) (int64 arrays) on a (height, width) image, as blend events in
+    drawing order: (flat pixel index, alpha in 0..256, segment index).
 
     Each segment steps one pixel along its major axis and covers three
-    pixels across it, each blended toward `color` by a coverage alpha; the
-    blends of all segments are applied per pixel in the segments' order."""
-    if img.dtype != np.uint8 or img.ndim != 2 or not img.flags.c_contiguous:
-        raise ValueError("draw_lines_aa draws into a C-contiguous (H, W) "
-                         "uint8 image")
-    h, w = img.shape
-    p1 = np.asarray(p1, np.int64).reshape(-1, 2) << XY_SHIFT
-    p2 = np.asarray(p2, np.int64).reshape(-1, 2) << XY_SHIFT
-    inside, x1, y1, x2, y2 = _clip_lines(w << XY_SHIFT, h << XY_SHIFT,
-                                         p1[:, 0], p1[:, 1], p2[:, 0],
-                                         p2[:, 1])
+    pixels across it, each blended toward the color by a coverage alpha."""
+    n_in = len(x1)
+    inside, x1, y1, x2, y2 = _clip_lines(width << XY_SHIFT,
+                                         height << XY_SHIFT, x1, y1, x2, y2)
+    segment = np.arange(n_in)[inside]
     x1, y1, x2, y2 = x1[inside], y1[inside], x2[inside], y2[inside]
     # u: the major axis (x where |dx| > |dy|), v: the minor; then u ascends
     xmajor = np.abs(x2 - x1) > np.abs(y2 - y1)
@@ -172,16 +165,31 @@ def draw_lines_aa(img: np.ndarray, p1, p2, color: int = 255) -> None:
     dist = (v_fix >> (XY_SHIFT - 5)) & 31
     corr = ep[seg, (((s_count >= 2) + 1) & (s_count | 2)) * 3
               + (((e_count >= 2) + 1) & (e_count | 2))]
-    major_size = np.where(xmajor[seg], w, h)
-    minor_size = np.where(xmajor[seg], h, w)
+    major_size = np.where(xmajor[seg], width, height)
+    minor_size = np.where(xmajor[seg], height, width)
     vv = v[:, None] + np.arange(3)
     ok = ((u >= 0) & (u < major_size))[:, None] & (vv >= 0) & (
         vv < minor_size[:, None])
     # boolean indexing keeps the C loop's (step, tap) order
     uu, xm = u[:, None], xmajor[seg][:, None]
-    pix = np.where(xm, vv * w + uu, uu * w + vv)[ok]
+    pix = np.where(xm, vv * width + uu, uu * width + vv)[ok]
     taps = np.stack([dist + 32, dist, 63 - dist], axis=1)
     alpha = ((corr[:, None] * _FILTER[taps]) >> 8)[ok] & 0xFF
+    return pix, alpha, np.broadcast_to(segment[seg][:, None], ok.shape)[ok]
+
+
+def _blend(img: np.ndarray, pix, alpha, color: int) -> None:
+    """Apply blend events (flat pixel, alpha), given in drawing order, to the
+    uint8 image in place: OpenCV's 1-channel blend, which runs twice. An
+    alpha of 256 writes `color` outright (a filled span's pixel); as every
+    later blend toward `color` leaves it there, a pixel with such an event
+    ends at `color` whatever else is drawn over it."""
+    flat = img.reshape(-1)
+    filled = np.zeros(flat.shape, bool)
+    filled[pix[alpha > 255]] = True
+    flat[filled] = color
+    keep = ~filled[pix]
+    pix, alpha = pix[keep], alpha[keep]
     # fold each pixel's blends in drawing order: the r-th blend of every
     # pixel at once
     by_pix = np.argsort(pix, kind="stable")
@@ -189,14 +197,186 @@ def draw_lines_aa(img: np.ndarray, p1, p2, color: int = 255) -> None:
     first = np.r_[True, pix[1:] != pix[:-1]]
     start = np.maximum.accumulate(np.where(first, np.arange(len(pix)), 0))
     rank = np.arange(len(pix)) - start
-    flat = img.reshape(-1)
-    for r in range(int(rank.max()) + 1 if len(rank) else 0):
-        sel = rank == r
-        p, a = pix[sel], alpha[sel]
+    by_rank = np.argsort(rank, kind="stable")
+    pix, alpha = pix[by_rank], alpha[by_rank]
+    bounds = np.r_[0, np.cumsum(np.bincount(rank))]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        p, a = pix[lo:hi], alpha[lo:hi]
         c = flat[p].astype(np.int64)
-        c += ((color - c) * a + 127) >> 8  # the 1-channel blend runs twice
+        c += ((color - c) * a + 127) >> 8
         c += ((color - c) * a + 127) >> 8
         flat[p] = c
+
+
+# OpenCV's SinTable (imgproc/src/drawing.cpp): sin of each whole degree
+# 0..450, written to 7 decimals and stored as float
+_SIN_TABLE = np.round(np.sin(np.radians(np.arange(451))), 7).astype(
+    np.float32).astype(np.float64)
+
+
+def _fill_events(width: int, height: int, vx: np.ndarray, vy: np.ndarray):
+    """OpenCV's FillConvexPoly with LINE_AA at shift 16, for P convex
+    polygons of n vertices each ((P, n) int64 16.16 fixed point), without
+    its outline: the filled spans as events (flat pixel, polygon index).
+
+    The scan walks a left and a right chain from the top vertex, one row a
+    step, each edge's x advanced by a rounded fixed-point slope; a row
+    covers the pixels from ceil(left x) to floor(right x). Every polygon
+    runs the C loop's steps in lockstep with the others."""
+    n_poly, n = vx.shape
+    half = XY_ONE >> 1
+    imin = np.argmin(vy, axis=1)  # the first of the topmost vertices
+    xmin = (vx.min(1) + half) >> XY_SHIFT
+    xmax = (vx.max(1) + half) >> XY_SHIFT
+    ymin = (vy.min(1) + half) >> XY_SHIFT
+    ymax = np.minimum((vy.max(1) + half) >> XY_SHIFT, height - 1)
+    active = ((n >= 3) & (xmax >= 0) & (ymax >= 0) & (xmin < width)
+              & (ymin < height))
+    rows = np.arange(n_poly)
+    di = np.array([1, n - 1])
+    e_idx = np.stack([imin, imin], 1)
+    e_x = np.full((n_poly, 2), -XY_ONE, np.int64)
+    e_dx = np.zeros((n_poly, 2), np.int64)
+    e_ye = np.stack([ymin, ymin], 1)
+    edges = np.full(n_poly, n, np.int64)
+    y = ymin.copy()
+    spans = []
+    while active.any():
+        update = active & ((y < ymax) | (y == ymin))
+        for i in range(2):
+            # find the next edge of chain i that ends below row y
+            look = update & (y >= e_ye[:, i])
+            idx0 = e_idx[:, i].copy()
+            idx = (idx0 + di[i]) % n
+            while look.any():
+                more = edges > 0  # for (; edges-- > 0; )
+                edges = edges - look
+                go = look & more
+                ty = (vy[rows, idx] + half) >> XY_SHIFT
+                hit = go & (ty > y)
+                xs, xe = vx[rows, idx0], vx[rows, idx]
+                num = (xe - xs) * 2 + (ty - y)
+                den = np.where(hit, 2 * (ty - y), 1)
+                step = np.sign(num) * (np.abs(num) // den)  # C's truncation
+                e_ye[:, i] = np.where(hit, ty, e_ye[:, i])
+                e_dx[:, i] = np.where(hit, step, e_dx[:, i])
+                e_x[:, i] = np.where(hit, xs, e_x[:, i])
+                e_idx[:, i] = np.where(hit, idx, e_idx[:, i])
+                look = go & ~hit
+                idx0 = np.where(look, idx, idx0)
+                idx = np.where(look, (idx + di[i]) % n, idx)
+        active &= edges >= 0
+        left = np.minimum(e_x[:, 0], e_x[:, 1])
+        right = np.maximum(e_x[:, 0], e_x[:, 1])
+        xx1 = np.maximum((left + XY_ONE - 1) >> XY_SHIFT, 0)
+        xx2 = np.minimum(right >> XY_SHIFT, width - 1)
+        draw = active & (y >= 0) & (right >> XY_SHIFT >= 0) & (
+            (left + XY_ONE - 1) >> XY_SHIFT < width) & (xx2 >= xx1)
+        spans.append(np.stack([rows, y, xx1, xx2], 1)[draw])
+        e_x += e_dx
+        y = y + 1
+        active &= y <= ymax
+    spans = np.concatenate(spans) if spans else np.zeros((0, 4), np.int64)
+    length = spans[:, 3] - spans[:, 2] + 1
+    first = np.repeat(np.cumsum(length) - length, length)
+    col = spans[:, 2].repeat(length) + np.arange(length.sum()) - first
+    pix = spans[:, 1].repeat(length) * width + col
+    return pix, spans[:, 0].repeat(length)
+
+
+def _cap_polygons(cx: np.ndarray, cy: np.ndarray, radius: int):
+    """The vertices ((P, n) each) of OpenCV's filled anti-aliased disc
+    (EllipseEx with equal axes `radius`, 16.16) around each 16.16 centre:
+    ellipse2Poly's points every `delta` degrees (90, 30, 18 or 5, from the
+    radius), rounded to whole fixed-point units the way EllipseEx rounds
+    them. EllipseEx drops a point equal to the one before it; at a radius
+    of a pixel or more (a thickness of 2 or more) none is."""
+    delta = (radius + (XY_ONE >> 1)) >> XY_SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 else 5
+    angle = np.minimum(np.arange(0, 360 + delta, delta), 360)
+    px = cx[:, None].astype(np.float64) + radius * _SIN_TABLE[450 - angle]
+    py = cy[:, None].astype(np.float64) + radius * _SIN_TABLE[angle]
+
+    def fix(p):
+        whole = np.rint(p / XY_ONE).astype(np.int64) << XY_SHIFT
+        return whole + np.rint(p - whole).astype(np.int64)
+
+    return fix(px), fix(py)
+
+
+def _thick_line_events(width: int, height: int, p1: np.ndarray,
+                       p2: np.ndarray, thickness: int):
+    """cv2.line(img, p1[i], p2[i], color, thickness, cv2.LINE_AA) for
+    thickness >= 2, for every segment in order, as blend events in drawing
+    order: (flat pixel, alpha; 256 for a filled pixel).
+
+    OpenCV clips each segment to the image grown by `thickness` on every
+    side, then (ThickLine) fills the 4-point polygon of the segment offset
+    by cvRound(d * (thickness + (thickness & 1)) * 2^15 / |d|) along its
+    normal, and a disc of radius thickness/2 at each end. Each of these
+    three polygons draws its anti-aliased outline (LineAA from the last
+    vertex round to the first) and then fills its inside solid."""
+    t = thickness
+    inside, x1, y1, x2, y2 = _clip_lines(width + 2 * t, height + 2 * t,
+                                         p1[:, 0] + t, p1[:, 1] + t,
+                                         p2[:, 0] + t, p2[:, 1] + t)
+    x1, y1 = (x1[inside] - t) << XY_SHIFT, (y1[inside] - t) << XY_SHIFT
+    x2, y2 = (x2[inside] - t) << XY_SHIFT, (y2[inside] - t) << XY_SHIFT
+    half_width = t << (XY_SHIFT - 1)
+    dx = (x1 - x2) * (1.0 / XY_ONE)
+    dy = (y2 - y1) * (1.0 / XY_ONE)
+    r2 = dx * dx + dy * dy
+    body = np.abs(r2) > np.finfo(np.float64).eps
+    with np.errstate(divide="ignore"):
+        scale = (half_width + (t & 1) * XY_ONE * 0.5) / np.sqrt(r2)
+    dpx = np.rint(dy * np.where(body, scale, 0.0)).astype(np.int64)
+    dpy = np.rint(dx * np.where(body, scale, 0.0)).astype(np.int64)
+    # polygons: (vx, vy, drawing rank); a segment's body, then its two caps
+    polys = [(np.stack([x1 + dpx, x1 - dpx, x2 - dpx, x2 + dpx], 1)[body],
+              np.stack([y1 + dpy, y1 - dpy, y2 - dpy, y2 + dpy], 1)[body],
+              3 * np.nonzero(body)[0])]
+    for end, (cx, cy) in enumerate(((x1, y1), (x2, y2))):
+        polys.append((*_cap_polygons(cx, cy, half_width),
+                      3 * np.arange(len(cx)) + 1 + end))
+    pix, alpha, key = [], [], []
+    for vx, vy, rank in polys:
+        # the outline: edges (v[n-1], v[0]), (v[0], v[1]), ...
+        ex1, ey1 = np.roll(vx, 1, 1).reshape(-1), np.roll(vy, 1, 1).reshape(-1)
+        p, a, e = _line_aa_events(width, height, ex1, ey1, vx.reshape(-1),
+                                  vy.reshape(-1))
+        pix.append(p)
+        alpha.append(a)
+        key.append(2 * rank[e // vx.shape[1]])
+        p, poly = _fill_events(width, height, vx, vy)
+        pix.append(p)
+        alpha.append(np.full(len(p), 256, np.int64))
+        key.append(2 * rank[poly] + 1)
+    key = np.concatenate(key)
+    order = np.argsort(key, kind="stable")
+    return np.concatenate(pix)[order], np.concatenate(alpha)[order]
+
+
+def draw_lines_aa(img: np.ndarray, p1, p2, color: int = 255,
+                  thickness: int = 1) -> None:
+    """Draw segments p1[i] -> p2[i] ((N, 2) integer pixel (x, y)) into the
+    C-contiguous uint8 (H, W) `img` in place, one after the other, exactly
+    as N calls of `cv2.line(img, p1[i], p2[i], color, thickness,
+    cv2.LINE_AA)` would."""
+    if img.dtype != np.uint8 or img.ndim != 2 or not img.flags.c_contiguous:
+        raise ValueError("draw_lines_aa draws into a C-contiguous (H, W) "
+                         "uint8 image")
+    if thickness < 1:
+        raise ValueError(f"thickness {thickness}: OpenCV draws 1 or more")
+    h, w = img.shape
+    p1 = np.asarray(p1, np.int64).reshape(-1, 2)
+    p2 = np.asarray(p2, np.int64).reshape(-1, 2)
+    if thickness == 1:
+        p1, p2 = p1 << XY_SHIFT, p2 << XY_SHIFT
+        pix, alpha, _ = _line_aa_events(w, h, p1[:, 0], p1[:, 1], p2[:, 0],
+                                        p2[:, 1])
+    else:
+        pix, alpha = _thick_line_events(w, h, p1, p2, thickness)
+    _blend(img, pix, alpha, color)
 
 
 def sample_cube_edge_points(half: float = 0.5, spacing: float = 0.005):
@@ -225,17 +405,15 @@ def make_synthetic_scene(out_dir: str, scan: str = "cube000", n_views: int = 24,
                          H: int = 96, W: int = 96, cam_radius: float = 2.2,
                          near: float = 0.05, far: float = 4.5,
                          detector: str = "DexiNed", line_px: int = 1,
-                         obj: str = "cube",
+                         seed: int = 0, obj: str = "cube",
                          pp_offset: tuple = (0.0, 0.0)) -> str:
     """Write a synthetic wireframe scan under out_dir/<scan>/ (white edges
     on black, golden-spiral cameras); returns the scan directory. The
     principal point sits at (W/2 + dx, H/2 + dy) for pp_offset (dx, dy).
-    Only 1-pixel lines (`line_px` 1, the JAX package's default) are
-    ported."""
-    if line_px != 1:
-        raise NotImplementedError(f"line_px {line_px}: only OpenCV's "
-                                  "1-pixel anti-aliased line is ported "
-                                  "(ROADMAP.md queue 1)")
+    Lines are `line_px` pixels wide, drawn as OpenCV draws them. The scene
+    is deterministic: `seed` is accepted for the JAX package's signature,
+    whose writer seeds a generator that it never draws from."""
+    del seed
     scan_dir = os.path.join(out_dir, scan)
     edge_subdir = "edge_PidiNet" if detector == "PidiNet" else "edge_DexiNed"
     os.makedirs(os.path.join(scan_dir, edge_subdir), exist_ok=True)
@@ -268,7 +446,8 @@ def make_synthetic_scene(out_dir: str, scan: str = "cube000", n_views: int = 24,
             keep = valid[:-1] & valid[1:]
             starts.append(uv_int[:-1][keep])
             ends.append(uv_int[1:][keep])
-        draw_lines_aa(img, np.concatenate(starts), np.concatenate(ends))
+        draw_lines_aa(img, np.concatenate(starts), np.concatenate(ends),
+                      thickness=line_px)
         name = f"{i:03d}.png"
         write_png(os.path.join(scan_dir, edge_subdir, name), img)
         write_png(os.path.join(scan_dir, "color", name),

@@ -9,6 +9,7 @@ from emap_tpu_torch.fields.udf import (
     UDFConfig,
     apply_udf,
     init_udf_params,
+    udf_gradient,
     udf_value,
     udf_value_and_gradient,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "UDFConfig",
     "apply_udf",
     "init_udf_params",
+    "udf_gradient",
     "udf_value",
     "udf_value_and_gradient",
 ]

@@ -283,6 +283,14 @@ def udf_value(params: Params, pts: torch.Tensor, cfg: UDFConfig) -> torch.Tensor
     return apply_udf(params, pts, cfg)[..., 0]
 
 
+def udf_gradient(params: Params, pts: torch.Tensor,
+                 cfg: UDFConfig) -> torch.Tensor:
+    """d udf / d pts, shape (..., 3): the gradient of
+    udf_value_and_gradient, with its graph kept, so a loss on it
+    differentiates w.r.t. params (the eikonal term's double backward)."""
+    return udf_value_and_gradient(params, pts, cfg)[1]
+
+
 def udf_value_and_gradient(params: Params, pts: torch.Tensor,
                            cfg: UDFConfig):
     """(udf (...,), d udf / d pts (..., 3)). The gradient keeps its graph

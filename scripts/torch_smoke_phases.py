@@ -7,6 +7,7 @@ that are slow to reach or need repeating:
     python3 scripts/torch_smoke_phases.py confs        # phases 10 and 11
     python3 scripts/torch_smoke_phases.py parallel     # phase 12
     python3 scripts/torch_smoke_phases.py ranks        # its multi-rank runs
+    python3 scripts/torch_smoke_phases.py public       # phase 13
 
 `graph` trains the smoke conf's 20 steps through the CLI (phase 4) and
 runs phase 8 (CUDA graph replays against eager steps, bit for bit) N
@@ -21,7 +22,9 @@ runs phase 12 (the multi-device path: a NCCL group of world 1 in the
 process, and on a machine with two cards or more the spawned multi-rank
 CLI runs). `ranks` runs only those multi-rank CLI runs (2 and 4 ranks
 against one process), so that a four-card machine's time goes to what
-needs four cards.
+needs four cards. `public` runs phase 13 (the JAX package's last public
+functions: a thick-line PidiNet scene trained on at Replica width,
+udf_gradient, get_flow_vis, semantic_color_map, no cv2).
 A failed check is printed and the run goes on; the exit code is 1 if any
 failed. Run from the repository root; needs the card.
 """
@@ -155,6 +158,17 @@ def ranks(tmp: str, smi: str) -> bool:
                    lambda: cs.multi_rank_check(conf_path, tmp, smi))
 
 
+def public(tmp: str, smi: str) -> bool:
+    import chip_smoke as cs
+    from emap_tpu_torch import config
+    from emap_tpu_torch.fields.udf import UDFConfig
+
+    abc = config.parse_file(os.path.join(REPO, "confs", "ABC.conf"))
+    ucfg = UDFConfig.from_conf(abc.get_config("model.udf_network"))
+    return attempt("phase 13",
+                   lambda: cs.public_functions_phase(tmp, ucfg, smi))
+
+
 def main() -> int:
     import torch
 
@@ -181,9 +195,11 @@ def main() -> int:
             ok = parallel(tmp, smi)
         elif what == "ranks":
             ok = ranks(tmp, smi)
+        elif what == "public":
+            ok = public(tmp, smi)
         else:
             raise SystemExit(f"unknown phase set {what!r}: graph, "
-                             "determinism, confs, parallel or ranks")
+                             "determinism, confs, parallel, ranks or public")
     return 0 if ok else 1
 
 

@@ -266,10 +266,71 @@ def test_line_aa_equals_cv2_line():
         assert (want > 0).sum() > 0.2 * h * w
 
 
-def test_scene_writer_thick_lines_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="line_px"):
-        tsyn.make_synthetic_scene(str(tmp_path), n_views=1, H=16, W=16,
-                                  line_px=2)
+@pytest.mark.parametrize("thickness", [2, 3, 5, 20, 31])
+def test_thick_line_aa_equals_cv2_line(thickness):
+    """Random integer segments, many clipped at the border or wholly
+    outside, drawn into one array in turn over a background of scattered
+    grey pixels: cv2.line(..., thickness, LINE_AA) and draw_lines_aa agree
+    on every pixel, overlaps of bodies and end caps included. The caps are
+    polygons of 4 sides (thickness 2, 3), 12 (5), 20 (20) and 72 (31)."""
+    rng = np.random.default_rng(thickness)
+    for h, w in ((31, 47), (64, 64), (9, 120)):
+        p1 = rng.integers(-40, max(h, w) + 40, (200, 2))
+        p2 = rng.integers(-40, max(h, w) + 40, (200, 2))
+        p2[:20] = p1[:20]  # single points: the two caps alone
+        p2[20:40, 0] = p1[20:40, 0]  # vertical
+        p2[40:60, 1] = p1[40:60, 1]  # horizontal
+        p2[60:100] = p1[60:100] + rng.integers(-4, 5, (40, 2))  # short
+        p1[100:105] = [-2 ** 31 + 64, 2 ** 31 - 64]  # far outside
+        background = (rng.integers(0, 2, (h, w))
+                      * rng.integers(0, 256, (h, w))).astype(np.uint8)
+        want = background.copy()
+        for a, b in zip(p1, p2):
+            cv2.line(want, (int(a[0]), int(a[1])), (int(b[0]), int(b[1])),
+                     255, thickness, lineType=cv2.LINE_AA)
+        got = background.copy()
+        tsyn.draw_lines_aa(got, p1, p2, thickness=thickness)
+        np.testing.assert_array_equal(got, want)
+        assert (want == 255).sum() > 0.2 * h * w
+
+
+THICK_SCENES = {
+    "cube128": dict(n_views=24, H=128, W=128, obj="cube"),
+    "rings128": dict(n_views=8, H=128, W=128, obj="rings"),
+    "offcentre400x300": dict(n_views=6, H=300, W=400, obj="cube",
+                             pp_offset=(-37.5, 21.0)),
+}
+
+
+@pytest.mark.parametrize("line_px", [2, 3])
+@pytest.mark.parametrize("name", list(THICK_SCENES))
+def test_scene_writer_thick_lines_equal_jax(tmp_path, name, line_px):
+    """Scenes with `line_px` 2 and 3: every PNG of the port's writer decodes
+    to the pixels of the JAX package's cv2-drawn one (63 pieces a segment
+    drawn in turn, their end caps overlapping), and `seed` is accepted."""
+    kw = dict(THICK_SCENES[name], line_px=line_px, seed=3,
+              detector="PidiNet")
+    t_dir = tsyn.make_synthetic_scene(str(tmp_path / "t"), **kw)
+    j_dir = j_make_scene(str(tmp_path / "j"), **kw)
+    lit = 0
+    for sub in ("edge_PidiNet", "color"):
+        names = sorted(os.listdir(os.path.join(j_dir, sub)))
+        assert names == sorted(os.listdir(os.path.join(t_dir, sub)))
+        assert len(names) == kw["n_views"]
+        for n in names:
+            want = cv2.imread(os.path.join(j_dir, sub, n),
+                              cv2.IMREAD_UNCHANGED)
+            got = cv2.imread(os.path.join(t_dir, sub, n),
+                             cv2.IMREAD_UNCHANGED)
+            np.testing.assert_array_equal(got, want, err_msg=f"{sub}/{n}")
+            lit += int((want == 255).sum())
+    assert lit > 0
+
+
+def test_line_thickness_below_one_raises():
+    with pytest.raises(ValueError, match="thickness"):
+        tsyn.draw_lines_aa(np.zeros((4, 4), np.uint8), [[0, 0]], [[3, 3]],
+                           thickness=0)
 
 
 def test_gt_samplers_equal():

@@ -151,6 +151,48 @@ def test_second_order_param_gradient_matches():
         assert max_rel(tgr, jgrads[l][k]) < 1e-4, (l, k)
 
 
+@pytest.mark.parametrize("udf_type", ["abs", "square"])
+def test_udf_gradient_matches(udf_type):
+    """udf_gradient against emap_tpu.fields.udf_gradient (grad of a sum):
+    rtol 1e-5, as the JAX package holds its fused pair to it."""
+    jcfg, tcfg, jp, tp = toy_nets(udf_type)
+    pts = np.random.default_rng(3).uniform(-1, 1, (192, 3)).astype(np.float32)
+    jg = jax.jit(judf.udf_gradient, static_argnums=2)(jp, jnp.asarray(pts),
+                                                      jcfg)
+    tg = tudf.udf_gradient(tp, torch.as_tensor(pts), tcfg)
+    assert tg.shape == (192, 3)
+    np.testing.assert_allclose(tg.detach().numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(jg)).max()))
+    # the same graph as udf_value_and_gradient's gradient, so the same bits
+    _, tg2 = tudf.udf_value_and_gradient(tp, torch.as_tensor(pts), tcfg)
+    assert torch.equal(tg, tg2)
+
+
+def test_udf_gradient_eikonal_param_gradient_matches():
+    """The eikonal loss of tests/test_fields.py's double-backprop test,
+    differentiated w.r.t. the parameters through udf_gradient, against
+    jax.grad of the same: max relative error < 1e-4 a leaf."""
+    jcfg, tcfg, jp, tp = toy_nets()
+    pts = np.random.default_rng(4).uniform(-0.5, 0.5, (64, 3)).astype(
+        np.float32)
+
+    def jeikonal(p):
+        g = judf.udf_gradient(p, jnp.asarray(pts), jcfg)
+        return ((jnp.linalg.norm(g, axis=-1) - 1.0) ** 2).mean()
+
+    jval, jgrads = jax.jit(jax.value_and_grad(jeikonal))(jp)
+    leaves = [t.requires_grad_(True) for layer in tp.values()
+              for t in layer.values()]
+    g = tudf.udf_gradient(tp, torch.as_tensor(pts), tcfg)
+    loss = ((torch.linalg.norm(g, dim=-1) - 1.0) ** 2).mean()
+    tgrads = torch.autograd.grad(loss, leaves)
+    assert float(loss.detach()) == pytest.approx(float(jval), rel=1e-5)
+    names = [(l, k) for l, layer in tp.items() for k in layer]
+    for (l, k), tgr in zip(names, tgrads):
+        assert torch.isfinite(tgr).all(), (l, k)
+        assert max_rel(tgr, jgrads[l][k]) < 1e-4, (l, k)
+
+
 def test_scalars_match():
     var = {"variance": np.array([0.3], np.float32),
            "second_variance": np.array([0.3], np.float32)}

@@ -333,19 +333,16 @@ def test_cli_trains_and_writes_a_jax_readable_checkpoint(tmp_path):
 
 
 def test_later_slices_raise(tmp_path):
-    """What is left to later slices raises, naming the ROADMAP: scenes with
-    lines thicker than one pixel, and nothing else here. The `mix`
-    up-sampler is ported (tests/test_torch_render.py), and so is the `.pth`
-    import (tests/test_torch_pth.py): a `.pth` that is not there and has no
-    .npz beside it is a missing file."""
+    """Nothing here is left to later slices: the `mix` up-sampler is ported
+    (tests/test_torch_render.py), and so is the `.pth` import
+    (tests/test_torch_pth.py): a `.pth` that is not there and has no .npz
+    beside it is a missing file. Thick scene lines are ported too
+    (tests/test_torch_data.py)."""
     path = _tiny_conf(tmp_path)
     runner = cli.main(["--conf", path, "--mode", "train", "--device", "cpu"])
     with pytest.raises(FileNotFoundError):
         runner.load_checkpoint("reference.pth")
     assert tr.RenderConfig(upsampling_type="mix").total_samples == 64 + 48
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_synthetic_scene(str(tmp_path / "thick"), n_views=1, H=8, W=8,
-                             line_px=3)
 
 
 def test_validation_views_follow_the_reference_stream(tmp_path):
