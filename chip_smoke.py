@@ -6,8 +6,9 @@
 Phases, each fatal on failure (nonzero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
-     and count the tensor-core instructions (HMMA) in every kernel
-     library's SASS;
+     print each kernel's ptxas registers and spills, and count the
+     tensor-core instructions in every kernel library's SASS: HGMMA
+     (wgmma) in mlp_train_wgmma, HMMA (mma.sync) in the others;
   3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
      against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
@@ -20,7 +21,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (4,194,304 points, the DTU and Replica confs); a bf16-tier kernel is
      also held against the fp32 plain version, and must sit nearer its own
      tier's; two launches of each kernel on the same inputs must agree bit
-     for bit;
+     for bit; #2 at the (bf16, bf16) pair runs on the wgmma kernels
+     (csrc/mlp_train_wgmma.cu), whose four launches (prologue, per-point,
+     GEMM, reduce) get rows of their own: device time from torch.profiler,
+     bound, each held against the plain version of that launch, and the
+     GEMM's library_ms (torch.bmm on the same bf16 factors); then
+     csrc/mlp_train.cu's mma.sync bf16 instantiation and the wgmma kernels
+     are timed in turns (old, new, new, old), and the wgmma kernels must be
+     the faster;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it (its tiers: the training field query and the up-sampler at the bf16
      tier "default", extraction at "high"), train END_ITER steps at full
@@ -118,7 +126,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      get_flow_vis on a 400x400 angle field and semantic_color_map, their
      shapes and dtypes; and cv2 absent from sys.modules.
 Each kernel row's `launches` is its kernel and tier's count in the run of
-the path that runs it: the main path (phases 4 and 6), a phase 9 run, or
+the path that runs it (a launch row of the wgmma kernels, named
+"mlp_train_bwd/bf16:<launch>", its wrapper row's): the main path (phases 4 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
 and ".../256^3"; phase 10's rows of tiers no path of the conf runs are
 printed and held, not listed).
@@ -471,9 +480,14 @@ def same_bits(name, kern, args, ucfg) -> None:
     check(same, f"two launches of {name} on the same inputs differ")
 
 
+# The tensor-core instruction each library must hold: wgmma (HGMMA) in the
+# Hopper library of #2's bf16 pair, mma.sync (HMMA) in the others.
+WGMMA_LIBS = ("mlp_train_wgmma",)
+
+
 def tensor_core_sass(names) -> None:
-    """Count the tensor-core instructions (HMMA) in each library's SASS;
-    fail if one has none."""
+    """Count the tensor-core instructions, HMMA (mma.sync) and HGMMA
+    (wgmma), in each library's SASS; fail if one lacks its kind."""
     import shutil
 
     from emap_tpu_torch.kernels import build
@@ -483,11 +497,16 @@ def tensor_core_sass(names) -> None:
         sass = subprocess.run([tool, "-sass", build.lib_path(name)],
                               capture_output=True, text=True,
                               check=True).stdout
-        kinds = sorted({w for line in sass.splitlines() for w in line.split()
-                        if w.startswith("HMMA")})
-        count = sum(line.count("HMMA") for line in sass.splitlines())
-        print(f"sass {name}: {count} HMMA instructions {kinds}", flush=True)
-        check(count > 0, f"{name} has no tensor-core instruction")
+        counts = {}
+        for op in ("HMMA", "HGMMA"):
+            kinds = sorted({w for line in sass.splitlines()
+                            for w in line.split() if w.startswith(op)})
+            counts[op] = sum(w.startswith(op) for line in sass.splitlines()
+                             for w in line.split())
+            print(f"sass {name}: {counts[op]} {op} instructions {kinds}",
+                  flush=True)
+        need = "HGMMA" if name in WGMMA_LIBS else "HMMA"
+        check(counts[need] > 0, f"{name} has no {need} instruction")
 
 
 def packed_weights(ucfg):
@@ -522,6 +541,7 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
     at that tier; the rows in that order."""
     import torch
 
+    from emap_tpu_torch.fields.udf import adjoint_tier
     from emap_tpu_torch.kernels import mlp_query, mlp_train
 
     w, b = packed_weights(ucfg)
@@ -536,9 +556,7 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
         return {"udf": out}
 
     def bwd_blocks(out):
-        layers = mlp_query.unpack_weights(*out, ucfg)
-        return {f"lin{l}/{k}": t for l, (wl, bl) in enumerate(layers)
-                for k, t in (("W", wl), ("b", bl))}
+        return blocks_of(out, ucfg)
 
     f32 = 4
     pack_bytes = f32 * (w.numel() + b.numel())
@@ -568,13 +586,18 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
         cfg = at_tier(ucfg, tier)
         same_bits("mlp_train_bwd", mlp_train.train_bwd,
                   (x, w, b, ubar, gbar), cfg)
+        wgmma = mlp_train.pair_name(*(mlp_query.kernel_tier(t) for t in (
+            cfg.precision, adjoint_tier(cfg)))) == "bf16"
         rows.append(kernel_row(
             "mlp_train_bwd", mlp_train.train_bwd, mlp_train.train_bwd_plain,
             bwd_blocks, (x, w, b, ubar, gbar), cfg,
-            "emap_tpu_torch/csrc/mlp_train.cu",
+            "emap_tpu_torch/csrc/mlp_train_wgmma.cu" if wgmma
+            else "emap_tpu_torch/csrc/mlp_train.cu",
             "emap_tpu/kernels/mlp_train.py:417",
             f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
             tuple(f * n for f in bwd_flops(cfg))))
+        if wgmma:
+            rows += wgmma_rows((x, w, b, ubar, gbar), cfg, rows[-1])
     for grid_x in grids:
         for tier in KERNEL_TIERS["mlp_value"]:
             cfg = at_tier(ucfg, tier)
@@ -582,6 +605,212 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
                       (grid_x, w, b), cfg)
             rows.append(value_row(grid_x, cfg))
     return rows
+
+
+WGMMA_LAUNCHES = {  # kernel name in the profile: launch
+    "pack_kernel": "pack", "per_point_kernel": "per_point",
+    "wbar_kernel": "gemm", "reduce_kernel": "reduce"}
+
+
+def launch_times(fn, reps: int, names) -> dict:
+    """Device ms a launch of each kernel whose name holds one of `names`,
+    from torch.profiler over `reps` calls of fn after a warm-up: each
+    kernel's device time over the launches the profiler recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+        for name in names:
+            if name in e.key:
+                total[name] += us
+                count[name] += e.count
+    check(all(count.values()), f"the profiler recorded no launch of "
+          f"{[k for k, v in count.items() if not v]}")
+    return {k: total[k] / (1e3 * count[k]) for k in names}
+
+
+def gemm_library_ms(factors, ucfg) -> tuple:
+    """(ms, form) of one PyTorch call computing the GEMM's function on the
+    same bf16 factors: torch.bmm over the layers, each layer's [R; Z-hat]
+    (out_l x 2N, zero-padded to the widest) against [Q-hat; U]^T, fp32
+    result where torch takes out_dtype (else a bf16 result). Timed here
+    only; the port never calls it."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_train
+
+    lay = mlp_train.wgmma_layout(ucfg)
+    n = factors.shape[1]
+    a = torch.zeros(len(lay["dims"]), 256, 2 * n, dtype=torch.bfloat16,
+                    device="cuda")
+    bt = torch.zeros_like(a)
+    for l, (i, o) in enumerate(lay["dims"]):
+        for k, (ra, rb) in enumerate((("R", "Q"), ("Z", "U"))):
+            a[l, :o, k * n: (k + 1) * n] = factors[
+                lay["rows"][ra][l]: lay["rows"][ra][l] + o]
+            bt[l, :i, k * n: (k + 1) * n] = factors[
+                lay["rows"][rb][l]: lay["rows"][rb][l] + i]
+    b = bt.transpose(1, 2)
+    try:
+        torch.bmm(a, b, out_dtype=torch.float32)
+        form = "torch.bmm bf16 -> fp32 (out_dtype)"
+        ms, _ = time_ms(lambda: torch.bmm(a, b, out_dtype=torch.float32), 5)
+    except (TypeError, RuntimeError):
+        form = "torch.bmm bf16 -> bf16 (no out_dtype in this torch)"
+        ms, _ = time_ms(lambda: torch.bmm(a, b), 5)
+    return ms, form
+
+
+def wgmma_rows(args, ucfg, whole: dict) -> list:
+    """#2's wgmma kernels at the bf16 pair, launch by launch, on the inputs
+    of `whole` (their row as one function): each launch's device time
+    (torch.profiler), its bound from train_bwd_launch_costs, and its output
+    against the plain version of that launch on the same inputs: the
+    prologue against pack_weights_bf16 (bit for bit); the per-point
+    kernel's factors through wbar_from_factors, and its bias partials'
+    sum, against the plain factors' (BF16_KERNEL_RTOL a block); the GEMM's
+    range partials in order against wbar_from_factors of the kernel's own
+    factors, and the reduce against the in-order sums of the partials
+    (KERNEL_RTOL: fp32 sums in another order). The GEMM's row has a
+    library_ms. Then mlp_train.cu's mma.sync bf16 instantiation and the
+    wgmma kernels timed in turns (old, new, new, old)."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_train
+
+    x, w = args[:2]
+    n = x.shape[1]
+    parts = mlp_train.train_bwd_wgmma_parts(*args, ucfg)
+    torch.cuda.synchronize()
+    costs = mlp_train.train_bwd_launch_costs(ucfg, n)
+    times = launch_times(lambda: mlp_train.train_bwd_wgmma_parts(*args, ucfg),
+                         5, tuple(WGMMA_LAUNCHES))
+    lay = mlp_train.wgmma_layout(ucfg)
+    dims = lay["dims"]
+
+    def wblocks(wbar, bbar=None):
+        # W-bar alone: a zero b-bar's blocks agree with themselves
+        return blocks_of((wbar, torch.zeros_like(parts["bbar"]) if bbar is None
+                          else bbar), ucfg)
+
+    def in_order(part):
+        out = part[0]
+        for k in range(1, part.shape[0]):
+            out = out + part[k]
+        return out
+
+    def plain_reduce(p):
+        mask = torch.zeros_like(p["wbar"], dtype=torch.bool)
+        off = 0
+        for i, o in dims:
+            mask[:o, off: off + i] = True
+            off += i
+        return (torch.where(mask, in_order(p["wpart"]), 0.0),
+                in_order(p["bpart"]))
+
+    plain_ms = {
+        "pack": time_ms(lambda: mlp_train.pack_weights_bf16(w, ucfg), 2)[0],
+        "per_point": time_ms(lambda: mlp_train.train_bwd_factors(
+            *args, ucfg), 2)[0],
+        "gemm": time_ms(lambda: mlp_train.wbar_from_factors(
+            parts["factors"], ucfg), 2)[0],
+        "reduce": time_ms(lambda: plain_reduce(parts), 2)[0],
+    }
+    factors, bbar = mlp_train.train_bwd_factors(*args, ucfg)
+    wb_plain = mlp_train.pack_weights_bf16(w, ucfg)
+    held = {  # launch: (got blocks, want blocks, tolerance)
+        "pack": ({"wb": parts["wb"].float()}, {"wb": wb_plain.float()}, 0.0),
+        "per_point": (
+            wblocks(mlp_train.wbar_from_factors(parts["factors"], ucfg),
+                    in_order(parts["bpart"])),
+            wblocks(mlp_train.wbar_from_factors(factors, ucfg), bbar),
+            BF16_KERNEL_RTOL),
+        "gemm": (wblocks(plain_reduce(parts)[0]),
+                 wblocks(mlp_train.wbar_from_factors(parts["factors"], ucfg)),
+                 KERNEL_RTOL),
+        "reduce": (wblocks(parts["wbar"], parts["bbar"]),
+                   wblocks(*plain_reduce(parts)), KERNEL_RTOL),
+    }
+    lib_ms, lib_form = gemm_library_ms(parts["factors"], ucfg)
+    rows = []
+    for kernel, launch in WGMMA_LAUNCHES.items():
+        got, want, tol = held[launch]
+        abs_err, rel_err, worst = errors(got, want)
+        cost = costs[launch]
+        t_bytes, t_ops = cost["bytes"] / HBM_RATE, cost["flops"] / BF16_PEAK
+        row = dict(whole, name=f"{whole['name']}:{launch}",
+                   part_of=whole["name"], max_abs_err=abs_err,
+                   max_rel_err=rel_err, worst_block=worst,
+                   ms=times[kernel], plain_ms=plain_ms[launch],
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=lib_ms if launch == "gemm" else None,
+                   flops=cost["flops"], bytes=cost["bytes"])
+        for k in ("max_rel_err_vs_fp32", "mean_err", "mean_err_vs_fp32",
+                  "head_sign_flips"):
+            row.pop(k, None)
+        extra = ""
+        if launch == "per_point":
+            row["side_bytes"] = cost["side_bytes"]
+            extra = (f"; side arrays {cost['side_bytes'] / 1e9:.2f} GB "
+                     f"({1e3 * cost['side_bytes'] / HBM_RATE:.3f} ms at the "
+                     f"memory rate)")
+        if launch == "gemm":
+            extra = f"; library {lib_ms:.3f} ms ({lib_form})"
+        print(f"kernel {row['name']}: {kernel}, {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}: {cost['flops'] / 1e12:.3f} TFLOP, "
+              f"{cost['bytes'] / 1e6:.1f} MB); max abs err {abs_err:.3e}, "
+              f"max rel err {rel_err:.3e} in block {worst} (tolerance "
+              f"{tol:g}){extra}", flush=True)
+        check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+              f"{row['name']} gave non-finite values")
+        check(rel_err <= tol, f"{row['name']} disagrees with its plain "
+              f"version: max rel err {rel_err:.3e} in block {worst}")
+        rows.append(row)
+    total = sum(times.values())
+    print(f"kernel {whole['name']}: launches by device time "
+          f"{ {k: round(v, 3) for k, v in times.items()} }, {total:.3f} ms "
+          f"in all", flush=True)
+
+    # the mma.sync bf16 instantiation against the wgmma kernels, in turns
+    turns = {"mma.sync": [], "wgmma": []}
+    fns = {"mma.sync": lambda: mlp_train.train_bwd_mma_sync(*args, ucfg),
+           "wgmma": lambda: mlp_train.train_bwd_wgmma_parts(*args, ucfg)}
+    for name in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+        turns[name].append(time_ms(fns[name], 5)[0])
+    old = blocks_of(mlp_train.train_bwd_mma_sync(*args, ucfg), ucfg)
+    new = blocks_of((parts["wbar"], parts["bbar"]), ucfg)
+    want = blocks_of(mlp_train.train_bwd_plain(*args, ucfg), ucfg)
+    print(f"kernel {whole['name']}: in turns (old, new, new, old): mma.sync "
+          f"bf16 (csrc/mlp_train.cu) {turns['mma.sync']} ms, wgmma "
+          f"{turns['wgmma']} ms; max rel err against the plain version "
+          f"{errors(old, want)[1]:.3e} (mma.sync), "
+          f"{errors(new, want)[1]:.3e} (wgmma)", flush=True)
+    check(max(turns["wgmma"]) < min(turns["mma.sync"]),
+          f"the wgmma kernels ({turns['wgmma']} ms) do not beat the mma.sync "
+          f"bf16 instantiation ({turns['mma.sync']} ms)")
+    return rows
+
+
+def blocks_of(out, ucfg) -> dict:
+    from emap_tpu_torch.kernels import mlp_query
+
+    layers = mlp_query.unpack_weights(*out, ucfg)
+    return {f"lin{l}/{k}": t for l, (wl, bl) in enumerate(layers)
+            for k, t in (("W", wl), ("b", bl))}
 
 
 def sliced_row(ucfg, n: int) -> dict:
@@ -1444,7 +1673,17 @@ def conf_copy(name: str, tmp: str, data_dir: str, tag: str = "",
 
 def renamed(row: dict, suffix: str) -> dict:
     row["name"] = f"{row['name']}/{suffix}"
+    if "part_of" in row:
+        row["part_of"] = f"{row['part_of']}/{suffix}"
     return row
+
+
+def part_launches(rows) -> None:
+    """Each launch row of a kernel set takes its wrapper row's launches."""
+    row_of = {r["name"]: r for r in rows}
+    for r in rows:
+        if "part_of" in r:
+            r["launches"] = row_of[r["part_of"]]["launches"]
 
 
 def replica_train_run(path: str, label: str, smi: str) -> tuple:
@@ -1536,6 +1775,7 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
     runner, launches, keys = replica_train_run(path, "replica", smi)
     for key in keys.values():
         row_of[f"{key}/multires6"]["launches"] = launches[key]
+    part_launches(rows)
     first_step_check(path, runner.history[0]["loss"])
 
     # the conf's extraction device stages on the trained field
@@ -2091,7 +2331,8 @@ def main() -> int:
           flush=True)
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill",
+                                       "entry function")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     tensor_core_sass(build.SOURCES)
 
@@ -2126,6 +2367,7 @@ def main() -> int:
         row_of = {row["name"]: row for row in rows}
         for key in keys.values():
             row_of[key]["launches"] = launches[key]
+        part_launches(rows)
         # the one validation renders the view in batch_size-ray chunks, one
         # forward launch each
         h, w = (runner.scene.H // runner.validate_resolution_level,

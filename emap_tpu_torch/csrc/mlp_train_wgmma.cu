@@ -1,0 +1,857 @@
+// Second-order backward of the fused training field query at the bf16 tier,
+// on Hopper's warpgroup tensor cores (wgmma) fed by TMA.
+//
+// Replaces: emap_tpu/kernels/mlp_train.py::_pallas_train_bwd with
+// fuse_pe=True (per-tile math in _train_bwd_math) at the (bf16, bf16) pair
+// of tiers, the pair every shipped conf trains at (field_precision
+// "default", no bwd_precision); mlp_train.cu keeps the 3xTF32 and mixed
+// pairs. Given the cotangents ubar (on udf) and gbar (on the spatial
+// gradient) it recomputes the forward from the raw points, reruns the
+// spatial-gradient chain, runs the ascend/descend adjoint chains
+// (kernels/mlp_train.py, module docstring) and sums the packed weight and
+// bias gradients over all points. Every product takes bf16 operands
+// (rounded to nearest even, as tier_dot's .to(bfloat16)) with fp32 sums.
+//
+// Bound on the H100: operations. 12 sum(in_l out_l) - 4 in_0 out_0 FLOP a
+// point (kernels/mlp_train.py::train_bwd_flops) at 989 TFLOP/s of dense
+// bf16: >= 0.64 ms at the step's 116,736 points at ABC width, against 68
+// bytes of input a point and 2.2 MB of output. What the design does about
+// what holds it above that (PERF.md §6):
+//   * the weights are rounded to bf16 once a launch (pack_kernel) into
+//     64-column aligned blocks, and one producer warp keeps TMA loads of
+//     64 x 128 weight chunks in flight through a 4-stage mbarrier ring;
+//     the consumer warpgroups do no copy work;
+//   * the 30 chain products run as wgmma m64n128k16 with both operands in
+//     shared memory: each of two consumer warpgroups owns 64 points (the
+//     M side), so every weight chunk serves 128 points; the activations sit
+//     feature-major (a 128-byte row of 64 points a feature) and are read
+//     MN-major (the transpose bit), the forward and ascend products read W
+//     K-major and the gradient and descend products read the same chunk
+//     shape of W MN-major, so one copy of W serves both directions;
+//   * the accumulators and the epilogues (softplus, sigmoid, carry, the
+//     skip's 1/sqrt2) stay in registers; each product's result is written
+//     once as bf16 into the tile the next product reads, and the same tile
+//     goes to device memory by TMA as the weight-gradient factor (U, Q-hat,
+//     R, Z-hat: bf16, the tier's own rounding, feature-major, points
+//     contiguous), so the contraction reads half the bytes it read in fp32;
+//   * the bias gradient sums z-hat in fp32 before that rounding, a partial
+//     a block summed in a fixed order;
+//   * the weight gradient W-bar_l = R_l Q-hat_l^T + Z-hat_l U_l^T is a TMA
+//     plus wgmma GEMM over KS fixed point ranges (wbar_kernel), reduced in
+//     a fixed order (reduce_kernel): no atomics, bit-identical launches.
+// Sums: every 64-deep chunk of a contraction goes into a fresh accumulator
+// that is then added to the running fp32 sum (the tensor cores add
+// truncating: mlp_mma.cuh), in the chains and in the GEMM alike.
+// Device scratch: the factors, sum over layers of 2 (roundup(in_l, 64) +
+// roundup(out_l, 64)) bf16 rows a point, and the side arrays that do not
+// fit beside the tile, sigmoid(100 z_l) and carry_{l+1}, then s-hat_l, of
+// each hidden layer: 2 x 256 fp32 a layer a point, written and read back
+// as float4s by the thread that owns them, brought into L2 by one bulk
+// prefetch as the product whose epilogue reads them starts. They stay
+// fp32: a narrower width moves W-bar off its plain version by as much as
+// the kernel's own rounding (scripts/torch_side_precision.py).
+// Launches: pack_kernel, per_point_kernel, wbar_kernel, reduce_kernel.
+
+#include "mlp_wgmma.cuh"
+
+using namespace emap;
+
+namespace {
+
+constexpr int WG = 128;                       // threads of a warpgroup
+constexpr int NTW = 3 * WG;                   // producer + 2 consumers
+constexpr int PW = 64;                        // points of a consumer
+constexpr int PB = 2 * PW;                    // points of a block
+constexpr int FMAX = 256;                     // widest layer; tile rows
+constexpr int TILE_BYTES = FMAX * ROW_BYTES;  // one activation tile
+constexpr int STAGES = 4;                     // per-point weight ring
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;    // a 64 x 128 weight chunk
+constexpr int G_STAGES = 4;                   // GEMM factor ring
+constexpr int G_STAGE_BYTES = 4 * BOX_BYTES;  // 128 x 64 of each factor
+constexpr int SIDE = FMAX * PW;               // floats of a side array
+constexpr int KS = 4;                         // GEMM point ranges
+constexpr int MAXG = MAXL * 4;                // GEMM tiles, at most
+constexpr int PP_SMEM = STAGES * STAGE_BYTES + 4 * TILE_BYTES +
+                        (2 * 4 * FMAX + 2 * 3 * PW + 2 * 2 * PW) * 4 +
+                        2 * STAGES * 8 + 1024;
+constexpr int G_SMEM = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;
+
+// The layout of kernels/mlp_query.py::pack_weights and what this kernel
+// adds to it: the bf16 weight pack (FMAX rows, ldwb columns, layer l's
+// block at column offb_l, in_l columns padded to kpad_l = roundup(in_l,
+// 64)) and the factor rows (frows x n bf16): per layer U_l and Q-hat_l
+// (kpad_l rows each), R_l and Z-hat_l (opad_l = roundup(out_l, 64) rows).
+struct WLayout {
+  Layout lay;
+  int ldwb, frows;
+  int offb[MAXL], kpad[MAXL], opad[MAXL];
+  int rowU[MAXL], rowQ[MAXL], rowR[MAXL], rowZ[MAXL];
+};
+
+inline int ru64(int x) { return (x + 63) / 64 * 64; }
+
+// parse_layout, then what this kernel takes: no layer wider than FMAX, and
+// each layer's input the last one's output, with the encoded x appended at
+// a skip. 0 on success.
+int parse_wgmma(const int* h, float scale, WLayout* wl) {
+  Layout& lay = wl->lay;
+  if (parse_layout(h, scale, &lay) || lay.rmax > FMAX || lay.skip[0])
+    return 1;
+  int col = 0, row = 0;
+  for (int l = 0; l < lay.L; ++l) {
+    if (lay.in[l] > FMAX || lay.out[l] > FMAX) return 1;
+    if (l > 0 && lay.in[l] != lay.out[l - 1] + (lay.skip[l] ? lay.d0 : 0))
+      return 1;
+    wl->kpad[l] = ru64(lay.in[l]);
+    wl->opad[l] = ru64(lay.out[l]);
+    wl->offb[l] = col;
+    col += wl->kpad[l];
+    wl->rowU[l] = row;
+    row += wl->kpad[l];
+    wl->rowQ[l] = row;
+    row += wl->kpad[l];
+    wl->rowR[l] = row;
+    row += wl->opad[l];
+    wl->rowZ[l] = row;
+    row += wl->opad[l];
+  }
+  wl->ldwb = col;
+  wl->frows = row;
+  return 0;
+}
+
+// A chain product of layer l: N outputs a point over a K-deep contraction.
+// Forward and ascend (trans false) take W_l as it is: N = out_l, K =
+// kpad_l. Gradient and descend (trans true) take W_l^T: N = in_l, K =
+// opad_l. N runs in halves of 128, K in chunks of 64.
+__host__ __device__ inline void prod_shape(const WLayout& wl, int l,
+                                           bool trans, int& N, int& K) {
+  N = trans ? wl.lay.in[l] : wl.lay.out[l];
+  K = trans ? wl.opad[l] : wl.kpad[l];
+}
+
+// ---- prologue: W (rmax, ldw) fp32 -> the bf16 pack (FMAX, ldwb) ---------
+
+__global__ void pack_kernel(const float* __restrict__ W,
+                            unsigned short* __restrict__ wb, WLayout wl) {
+  const Layout& lay = wl.lay;
+  const size_t total = (size_t)FMAX * wl.ldwb;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / wl.ldwb), c = (int)(e % wl.ldwb);
+    int l = 0;
+    while (l + 1 < lay.L && c >= wl.offb[l + 1]) ++l;
+    const int k = c - wl.offb[l];
+    const float v = r < lay.rmax && k < lay.in[l]
+                        ? W[(size_t)r * lay.ldw + lay.off[l] + k]
+                        : 0.f;
+    wb[e] = bf16_bits(v);
+  }
+}
+
+// ---- per point ------------------------------------------------------------
+
+struct PPArgs {
+  const float* pts;   // (8, n) raw points
+  const float* W;     // (rmax, ldw) fp32 pack: the head's row
+  const float* B;     // (rmax, L)
+  const float* ubar;  // (n,)
+  const float* gbar;  // (8, n)
+  float* side;        // side arrays
+  float* bpart;       // (blocks, rmax, L) bias partials
+  unsigned short* F;  // (frows, n) factors
+  long long n;
+};
+
+// The producer: every weight chunk of the 30 products, in the consumers'
+// order, two 64 x 64 boxes a stage.
+__device__ void produce_chunks(const CUtensorMap* mw, const WLayout& wl,
+                               unsigned char* ring, uint64_t* full,
+                               uint64_t* empty) {
+  int stage = 0;
+  unsigned phase = 0;
+  auto product = [&](int l, bool trans) {
+    int N, K;
+    prod_shape(wl, l, trans, N, K);
+    for (int h = 0; h * 128 < N; ++h)
+      for (int c = 0; c < K / 64; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], STAGE_BYTES);
+        unsigned char* dst = ring + stage * STAGE_BYTES;
+        for (int j = 0; j < 2; ++j) {
+          // forward: rows (outputs) 128 h + 64 j, columns 64 c of the
+          // block; transposed: rows 64 c, columns 128 h + 64 j
+          const int x = wl.offb[l] + (trans ? 128 * h + 64 * j : 64 * c);
+          const int y = trans ? 64 * c : 128 * h + 64 * j;
+          tma_load(dst + j * BOX_BYTES, mw, x, y, &full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+  };
+  const int L = wl.lay.L;
+  for (int l = 0; l < L - 1; ++l) product(l, false);   // forward
+  for (int l = L - 2; l >= 1; --l) product(l, true);   // gradient chain
+  for (int l = 0; l < L - 1; ++l) product(l, false);   // ascend
+  for (int l = L - 2; l >= 1; --l) product(l, true);   // descend
+}
+
+// acc = one 128-wide half of a chain product for the warpgroup's 64
+// points: A the activation tile at a_addr (MN-major), B the ring's chunks
+// (K-major, or MN-major when TB). Each chunk's 64 steps go into `part`,
+// then into acc with a rounded fp32 add.
+template <int TB>
+__device__ __forceinline__ void product_half(float (&acc)[64],
+                                             float (&part)[64],
+                                             uint32_t a_addr, uint32_t ring,
+                                             int K, int& stage,
+                                             unsigned& phase, uint64_t* full,
+                                             uint64_t* empty) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < K / 64; ++c) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t b = ring + stage * STAGE_BYTES;
+    const uint32_t a = a_addr + c * 64 * ROW_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
+                           TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), s);
+    wg_commit();
+    wg_wait0();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// q-hat_0 = (dPE/dx)^T gbar at feature r of point n (blocked layout).
+__device__ __forceinline__ float pe_jacT_row(const float* pts,
+                                             const float* gbar, size_t ld,
+                                             size_t n, int r,
+                                             const Layout& lay) {
+  const int mr = lay.multires;
+  if (r < 3) return gbar[(size_t)r * ld + n] * lay.scale;
+  if (r < 3 + 6 * mr) {
+    const bool is_sin = r < 3 + 3 * mr;
+    const int q = is_sin ? r - 3 : r - 3 - 3 * mr;
+    const int k = q / 3, j = q % 3;
+    const float f = (float)(1 << k);
+    const float t = gbar[(size_t)j * ld + n] * lay.scale;
+    const float uf = pts[(size_t)j * ld + n] * lay.scale * f;
+    return is_sin ? (f * cosf(uf)) * t : ((-f) * sinf(uf)) * t;
+  }
+  return 0.f;
+}
+
+__global__ void __launch_bounds__(NTW, 1)
+    per_point_kernel(const __grid_constant__ CUtensorMap mw,
+                     const __grid_constant__ CUtensorMap mf, PPArgs a,
+                     WLayout wl) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;
+  unsigned char* tiles = ring + STAGES * STAGE_BYTES;
+  float* bsum = reinterpret_cast<float*>(tiles + 4 * TILE_BYTES);
+  float* vec = bsum + 2 * 4 * FMAX;  // [wg][dy, z-hat_{L-1}, r-hat_{L-1}][p]
+  float* red = vec + 2 * 3 * PW;     // [wg][2][p] head partial sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * 2 * PW);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < WG) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) produce_chunks(&mw, wl, ring, full, empty);
+    return;
+  }
+  regs_inc<232>();
+
+  const Layout& lay = wl.lay;
+  const int L = lay.L, rmax = lay.rmax;
+  const int wg = threadIdx.x / WG - 1;  // consumer 0 or 1
+  const int t = threadIdx.x % WG, w = t >> 5, q = t & 31;
+  const int tile_id = blockIdx.x * 2 + wg;
+  const long long p0 = (long long)tile_id * PW;
+  const bool valid = p0 < a.n;  // a ragged N leaves the last one empty
+  const size_t ld = (size_t)a.n;
+  unsigned char* cur = tiles + (2 * wg) * TILE_BYTES;
+  unsigned char* nxt = cur + TILE_BYTES;
+  float* dyv = vec + wg * 3 * PW;
+  float* zhv = dyv + PW;
+  float* rhv = zhv + PW;
+  const uint32_t ring_addr = smem_u32(ring);
+  const float* whead = a.W + lay.off[L - 1];  // the head's one row
+  int stage = 0;
+  unsigned phase = 0;
+  float acc[64], part[64];
+
+  auto wg_sync = [&] { named_sync(1 + wg, WG); };
+  auto side = [&](int l, int kind, int h, int j) {
+    return reinterpret_cast<float4*>(
+               a.side + ((((size_t)tile_id * (L - 1) + l) * 2 + kind) * SIDE)) +
+           (h * 16 + j) * WG + t;
+  };
+  // the accumulator element (j, e) of half h: point and feature
+  auto pt = [&](int e) { return 16 * w + (q >> 2) + 8 * (e >> 1); };
+  auto ft = [&](int h, int j, int e) {
+    return 128 * h + 8 * j + 2 * (q & 3) + (e & 1);
+  };
+  // nxt may be written once the store that last read it has read it
+  auto claim = [&] {
+    if (t == 0) bulk_wait_read();
+    wg_sync();
+  };
+  // the side arrays kind (0 sigmoid, 1 carry / s-hat) of layer l, both
+  // halves, on their way to L2 while the product whose epilogue reads them
+  // runs (one product ahead measured slower: L2 thrashed)
+  auto prefetch = [&](int l, int kind) {
+    if (t == 0)
+      l2_prefetch(a.side + (((size_t)tile_id * (L - 1) + l) * 2 + kind) * SIDE,
+                  SIDE * 4);
+  };
+  // nxt's writes visible to wgmma and TMA; rows [0, rows) of it stored as
+  // factor rows [row, row + rows) of the tile's points; nxt becomes cur
+  auto publish = [&](int row, int rows) {
+    fence_async_smem();
+    wg_sync();
+    if (t == 0 && valid) {
+      for (int b = 0; b < rows / 64; ++b)
+        tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);
+      bulk_commit();
+    }
+    unsigned char* s = cur;
+    cur = nxt;
+    nxt = s;
+  };
+  // rows [from, to) of nxt: v(r, p) for the tile's points, 0 past n
+  auto fill_rows = [&](int from, int to, auto v) {
+    for (int i = t; i < (to - from) * PW; i += WG) {
+      const int r = from + i / PW, p = i % PW;
+      st_bf16(nxt, r, p, valid ? v(r, (size_t)(p0 + p)) : 0.f);
+    }
+  };
+  auto x_row = [&](int r, size_t n) {
+    return r < lay.d0p ? encode_row(a.pts, ld, n, r, lay) : 0.f;
+  };
+  auto gb_row = [&](int r, size_t n) {
+    return r < lay.d0p ? pe_jacT_row(a.pts, a.gbar, ld, n, r, lay) : 0.f;
+  };
+  // the head's dot w . cur over in_{L-1} features at tier bf16, a point
+  // per pair of threads, four-way sums added in a fixed order; out[p]
+  auto head_dot = [&](float* out, float bias) {
+    const int p = t % PW, half = t / PW;
+    float s = 0.f;
+    for (int f = half; f < lay.in[L - 1]; f += 2)
+      s = fmaf(tier_operand<BF16>(whead[f]), ld_bf16(cur, f, p), s);
+    red[(wg * 2 + half) * PW + p] = s;
+    wg_sync();
+    if (t < PW) out[p] = (red[wg * 2 * PW + p] + red[(wg * 2 + 1) * PW + p]) + bias;
+    wg_sync();
+  };
+  // the head's transposed product: acc = w[f] v[p] at tier bf16
+  auto head_outer = [&](int h, const float* v) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = ft(h, j, e);
+        acc[4 * j + e] = f < lay.in[L - 1] ? tier_operand<BF16>(whead[f]) *
+                                                 tier_operand<BF16>(v[pt(e)])
+                                           : 0.f;
+      }
+  };
+  auto halves = [](int N) { return (N + 127) / 128; };
+
+  // ---- epilogues of half h ----
+  // forward, layer l: a = softplus(100 z)/100 (x 1/sqrt2 before a skip),
+  // s = sigmoid(100 z)
+  auto epi_forward = [&](int l, int h) {
+    const int M = lay.out[l];
+    const bool skip = lay.skip[l + 1] != 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float sg[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = ft(h, j, e);
+        float sig = 0.f, act = 0.f;
+        if (f < M) {
+          sig_softplus100(acc[4 * j + e] + a.B[f * L + l], sig, act);
+          if (skip) act *= INV_SQRT2;
+        }
+        sg[e] = sig;
+        if (f < M || !skip) st_bf16(nxt, f, pt(e), act);
+      }
+      *side(l, 0, h, j) = make_float4(sg[0], sg[1], sg[2], sg[3]);
+    }
+  };
+  // gradient chain, layer l: carry = the non-x rows of q (scaled at a
+  // skip), r_{l-1} = carry * s_{l-1}
+  auto epi_grad = [&](int l, int h) {
+    const int c = lay.out[l - 1];
+    const bool skip = lay.skip[l] != 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 sv = *side(l - 1, 0, h, j);
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      float ch[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = ft(h, j, e);
+        const float qv = acc[4 * j + e];
+        const float carry = skip ? qv * INV_SQRT2 : qv;
+        ch[e] = f < c ? carry : 0.f;
+        st_bf16(nxt, f, pt(e), f < c ? carry * sg[e] : 0.f);
+      }
+      *side(l - 1, 1, h, j) = make_float4(ch[0], ch[1], ch[2], ch[3]);
+    }
+  };
+  // ascend, layer l: s-hat_l = r-hat * carry_{l+1} (over the carry);
+  // q-hat_{l+1} = r-hat * s_l (x 1/sqrt2 before a skip)
+  auto epi_ascend = [&](int l, int h) {
+    const int M = lay.out[l];
+    const bool skip = lay.skip[l + 1] != 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float4* cp = side(l, 1, h, j);
+      const float4 cv = *cp, sv = *side(l, 0, h, j);
+      const float carry[4] = {cv.x, cv.y, cv.z, cv.w};
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      float sh[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = ft(h, j, e);
+        const float r = acc[4 * j + e];
+        sh[e] = f < M ? r * carry[e] : 0.f;
+        const float ch = r * sg[e];
+        const float qv = skip ? ch * INV_SQRT2 : ch;
+        if (f < M || !skip) st_bf16(nxt, f, pt(e), f < M ? qv : 0.f);
+      }
+      *cp = make_float4(sh[0], sh[1], sh[2], sh[3]);
+    }
+  };
+  // descend, layer l: a-hat = the non-x rows of u-hat (scaled at a skip),
+  // z-hat_{l-1} = a-hat * s + s-hat * (100 s (1 - s)); the bias sums of
+  // the warp's 16 points into bsum
+  auto epi_descend = [&](int l, int h) {
+    const int c = lay.out[l - 1];
+    const bool skip = lay.skip[l] != 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 sv = *side(l - 1, 0, h, j), hv = *side(l - 1, 1, h, j);
+      const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
+      const float sh[4] = {hv.x, hv.y, hv.z, hv.w};
+      float z[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = ft(h, j, e);
+        const float uh = acc[4 * j + e];
+        const float av = skip ? uh * INV_SQRT2 : uh;
+        z[e] = f < c ? av * sg[e] + sh[e] * ((100.f * sg[e]) * (1.f - sg[e]))
+                     : 0.f;
+        st_bf16(nxt, f, pt(e), z[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = valid ? z[e] + z[e + 2] : 0.f;
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (q < 4) bsum[(wg * 4 + w) * FMAX + ft(h, j, e)] = v;
+      }
+    }
+  };
+  // b-bar_lb of the block's 128 points: the 8 warps' sums in a fixed order
+  auto bias_flush = [&](int lb) {
+    named_sync(3, 2 * WG);
+    const int o = wg * WG + t;
+    if (o < rmax) {
+      float v = 0.f;
+      if (o < lay.out[lb])
+        for (int k = 0; k < 8; ++k) v += bsum[k * FMAX + o];
+      a.bpart[(size_t)blockIdx.x * rmax * L + (size_t)o * L + lb] = v;
+    }
+    named_sync(3, 2 * WG);
+  };
+
+  // x = PE(points): layer 0's input, U_0
+  claim();
+  fill_rows(0, wl.kpad[0], x_row);
+  publish(wl.rowU[0], wl.kpad[0]);
+
+  // forward recompute; U_{l+1}; s_l to the side arrays
+  for (int l = 0; l < L - 1; ++l) {
+    int N, K;
+    prod_shape(wl, l, false, N, K);
+    claim();
+    for (int h = 0; h < halves(N); ++h) {
+      product_half<0>(acc, part, smem_u32(cur), ring_addr, K, stage, phase,
+                      full, empty);
+      epi_forward(l, h);
+    }
+    if (lay.skip[l + 1])
+      fill_rows(lay.out[l], wl.kpad[l + 1], [&](int r, size_t n) {
+        return x_row(r - lay.out[l], n) * INV_SQRT2;
+      });
+    publish(wl.rowU[l + 1], wl.kpad[l + 1]);
+  }
+  // the head: y0 = w . u_{L-1} + b, dy = d udf / d y0; R_{L-1} = dy
+  head_dot(dyv, a.B[L - 1]);
+  if (t < PW) {
+    const float y0 = dyv[t];
+    float dy;
+    if (lay.udf_type == 0) dy = sign_of(y0) / lay.scale;
+    else if (lay.udf_type == 1) dy = 2.f * y0 / lay.scale;
+    else dy = 1.f / lay.scale;
+    dyv[t] = dy;
+    if (valid) a.F[(size_t)wl.rowR[L - 1] * ld + p0 + t] = bf16_bits(dy);
+  }
+  wg_sync();
+
+  // spatial-gradient chain: q = W_l^T r_l; R_{l-1}
+  claim();
+  for (int h = 0; h < halves(lay.in[L - 1]); ++h) {
+    head_outer(h, dyv);
+    epi_grad(L - 1, h);
+  }
+  publish(wl.rowR[L - 2], wl.opad[L - 2]);
+  for (int l = L - 2; l >= 1; --l) {
+    int N, K;
+    prod_shape(wl, l, true, N, K);
+    claim();
+    prefetch(l - 1, 0);
+    for (int h = 0; h < halves(N); ++h) {
+      product_half<1>(acc, part, smem_u32(cur), ring_addr, K, stage, phase,
+                      full, empty);
+      epi_grad(l, h);
+    }
+    publish(wl.rowR[l - 1], wl.opad[l - 1]);
+  }
+
+  // ascend: q-hat_0 = (dPE/dx)^T gbar, then r-hat = W_l q-hat_l; Q-hat_l
+  claim();
+  fill_rows(0, wl.kpad[0], gb_row);
+  publish(wl.rowQ[0], wl.kpad[0]);
+  for (int l = 0; l < L - 1; ++l) {
+    int N, K;
+    prod_shape(wl, l, false, N, K);
+    claim();
+    prefetch(l, 0);
+    prefetch(l, 1);
+    for (int h = 0; h < halves(N); ++h) {
+      product_half<0>(acc, part, smem_u32(cur), ring_addr, K, stage, phase,
+                      full, empty);
+      epi_ascend(l, h);
+    }
+    if (lay.skip[l + 1])
+      fill_rows(lay.out[l], wl.kpad[l + 1], [&](int r, size_t n) {
+        return gb_row(r - lay.out[l], n) * INV_SQRT2;
+      });
+    publish(wl.rowQ[l + 1], wl.kpad[l + 1]);
+  }
+  head_dot(rhv, 0.f);
+
+  // descend: z-hat_{L-1} = ubar * dy (+ r-hat * 2/scale, square head), then
+  // u-hat = W_l^T z-hat_l; Z-hat_l; the bias partials
+  if (t < PW) {
+    float z = 0.f;
+    if (valid) {
+      z = a.ubar[p0 + t] * dyv[t];
+      if (lay.udf_type == 1) z = z + rhv[t] * (2.f / lay.scale);
+      a.F[(size_t)wl.rowZ[L - 1] * ld + p0 + t] = bf16_bits(z);
+    }
+    zhv[t] = z;
+  }
+  wg_sync();
+  claim();
+  for (int h = 0; h < halves(lay.in[L - 1]); ++h) {
+    head_outer(h, zhv);
+    epi_descend(L - 1, h);
+  }
+  publish(wl.rowZ[L - 2], wl.opad[L - 2]);
+  bias_flush(L - 2);
+  for (int l = L - 2; l >= 1; --l) {
+    int N, K;
+    prod_shape(wl, l, true, N, K);
+    claim();
+    prefetch(l - 1, 0);
+    prefetch(l - 1, 1);
+    for (int h = 0; h < halves(N); ++h) {
+      product_half<1>(acc, part, smem_u32(cur), ring_addr, K, stage, phase,
+                      full, empty);
+      epi_descend(l, h);
+    }
+    publish(wl.rowZ[l - 1], wl.opad[l - 1]);
+    bias_flush(l - 1);
+  }
+  // b-bar of the head: the block's z-hat_{L-1}, its points in order
+  named_sync(3, 2 * WG);
+  const int o = wg * WG + t;
+  if (o < rmax) {
+    float v = 0.f;
+    if (o == 0)  // consumer 0's z-hat_{L-1}, then consumer 1's (0 if empty)
+      for (int k = 0; k < 2; ++k)
+        for (int p = 0; p < PW; ++p) v += vec[(3 * k + 1) * PW + p];
+    a.bpart[(size_t)blockIdx.x * rmax * L + (size_t)o * L + L - 1] = v;
+  }
+  if (t == 0) bulk_wait();
+}
+
+// ---- the weight-gradient GEMM ------------------------------------------
+
+struct GTile {
+  int l, o0, i0;  // a 128 x 128 block of W-bar_l
+};
+struct GTiles {
+  int count;
+  GTile t[MAXG];
+};
+
+// Per (tile, point range): wpart[range][o][off_l + i] = sum over the range
+// of R_l[o] Q-hat_l[i] + Z-hat_l[o] U_l[i]. The producer loads a 64-point
+// chunk of 128 factor rows of each operand a stage; consumer c takes rows
+// [64 c, 64 c + 64) of the tile.
+__global__ void __launch_bounds__(NTW, 1)
+    wbar_kernel(const __grid_constant__ CUtensorMap mf, WLayout wl,
+                GTiles tiles, long long n, long long chunk, float* wpart) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G_STAGES * G_STAGE_BYTES);
+  uint64_t* empty = full + G_STAGES;
+  const GTile tl = tiles.t[blockIdx.x];
+  const long long nb = (long long)blockIdx.y * chunk;
+  const long long ne = nb + chunk < n ? nb + chunk : n;
+  const int nch = nb < ne ? (int)((ne - nb + 63) / 64) : 0;
+  const int total = 2 * nch;  // (R, Q-hat) chunks, then (Z-hat, U)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < WG) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int c = 0; c < total; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], G_STAGE_BYTES);
+        unsigned char* dst = ring + stage * G_STAGE_BYTES;
+        const bool second = c >= nch;
+        const int x = (int)(nb + 64LL * (second ? c - nch : c));
+        const int ra = (second ? wl.rowZ : wl.rowR)[tl.l] + tl.o0;
+        const int rb = (second ? wl.rowU : wl.rowQ)[tl.l] + tl.i0;
+        for (int j = 0; j < 2; ++j) {
+          tma_load(dst + j * BOX_BYTES, &mf, x, ra + 64 * j, &full[stage]);
+          tma_load(dst + (2 + j) * BOX_BYTES, &mf, x, rb + 64 * j,
+                   &full[stage]);
+        }
+        if (++stage == G_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<232>();
+
+  const int cw = threadIdx.x / WG - 1;
+  const int t = threadIdx.x % WG, w = t >> 5, q = t & 31;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int stage = 0;
+  unsigned phase = 0;
+  for (int c = 0; c < total; ++c) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t b = smem_u32(ring + stage * G_STAGE_BYTES);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_m64n128<0, 0>(part, desc_kmajor(b + cw * BOX_BYTES, s),
+                          desc_kmajor(b + 2 * BOX_BYTES, s), s);
+    wg_commit();
+    wg_wait0();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (++stage == G_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const Layout& lay = wl.lay;
+  const int out = lay.out[tl.l], in = lay.in[tl.l];
+  float* wp = wpart + (size_t)blockIdx.y * lay.rmax * lay.ldw;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = tl.o0 + 64 * cw + 16 * w + (q >> 2) + 8 * (e >> 1);
+      const int i = tl.i0 + 8 * j + 2 * (q & 3) + (e & 1);
+      if (o < out && i < in)
+        wp[(size_t)o * lay.ldw + lay.off[tl.l] + i] = acc[4 * j + e];
+    }
+}
+
+// ---- reduce ----------------------------------------------------------------
+
+// wbar[e] = the KS range partials of e in order (0 outside every layer's
+// block), over blocks [0, wblocks); then bbar[e] = the per-point blocks'
+// partials of e, a warp an element: lane k sums partials k, k + 32, ...,
+// and the lanes' sums meet in a fixed tree.
+__global__ void reduce_kernel(const float* __restrict__ wpart,
+                              const float* __restrict__ bpart, float* wbar,
+                              float* bbar, WLayout wl, int nblk,
+                              int wblocks) {
+  const Layout& lay = wl.lay;
+  if ((int)blockIdx.x < wblocks) {
+    const size_t count = (size_t)lay.rmax * lay.ldw;
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < count;
+         e += (size_t)wblocks * blockDim.x) {
+      const int o = (int)(e / lay.ldw), col = (int)(e % lay.ldw);
+      int l = 0;
+      while (l + 1 < lay.L && col >= lay.off[l + 1]) ++l;
+      float v = 0.f;
+      if (o < lay.out[l])
+        for (int k = 0; k < KS; ++k) v += wpart[(size_t)k * count + e];
+      wbar[e] = v;
+    }
+    return;
+  }
+  const int count = lay.rmax * lay.L;
+  const int warps = (gridDim.x - wblocks) * (blockDim.x / 32);
+  const int lane = threadIdx.x & 31;
+  for (int e = (blockIdx.x - wblocks) * (blockDim.x / 32) + threadIdx.x / 32;
+       e < count; e += warps) {
+    float v = 0.f;
+    for (int b = lane; b < nblk; b += 32) v += bpart[(size_t)b * count + e];
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+    if (lane == 0) bbar[e] = v;
+  }
+}
+
+// Scratch the wrapper allocates, by kernels/mlp_train.py::wgmma_plan.
+struct Sizes {
+  long long wb, frows, side, partials, pp_smem, g_smem, blocks;
+};
+
+Sizes sizes_of(const WLayout& wl, long long n) {
+  const Layout& lay = wl.lay;
+  Sizes s;
+  s.blocks = (n + PB - 1) / PB;
+  s.wb = (long long)FMAX * wl.ldwb;
+  s.frows = wl.frows;
+  s.side = 2 * s.blocks * (lay.L - 1) * 2LL * SIDE;
+  s.partials = (long long)KS * lay.rmax * lay.ldw +
+               s.blocks * lay.rmax * lay.L;
+  s.pp_smem = PP_SMEM;
+  s.g_smem = G_SMEM;
+  return s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The scratch and shared memory of a launch at n points: out[0] bf16
+// weight-pack elements, [1] factor rows (x n bf16), [2] side-array floats,
+// [3] partial floats, [4] and [5] the per-point and GEMM kernels' dynamic
+// shared bytes, [6] per-point blocks. 0 on success, 1 on a layout the
+// kernels do not take.
+int emap_mlp_train_wgmma_sizes(const int* layout, long long n,
+                               long long* out) {
+  WLayout wl;
+  if (parse_wgmma(layout, 1.f, &wl) || n <= 0) return 1;
+  const Sizes s = sizes_of(wl, n);
+  const long long v[7] = {s.wb, s.frows, s.side, s.partials, s.pp_smem,
+                          s.g_smem, s.blocks};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// pts (8, n), W (rmax, ldw), B (rmax, L), ubar (n,), gbar (8, n) -> wbar
+// (rmax, ldw), bbar (rmax, L); fp32, contiguous, on the device; n a
+// multiple of 64; tier and adjoint_tier both BF16. Scratch as
+// emap_mlp_train_wgmma_sizes gives it: wb (bf16), factors (bf16), side and
+// partials (fp32). Returns cudaErrorInvalidValue on anything else or a
+// tensor map cuTensorMapEncodeTiled refuses, else the first nonzero CUDA error (the
+// shared-memory opt-ins, each launch).
+int emap_mlp_train_wgmma(const float* pts, const float* W, const float* B,
+                         const float* ubar, const float* gbar, float* wbar,
+                         float* bbar, void* wb, void* factors, float* side,
+                         float* partials, long long n, const int* layout,
+                         float scale, int tier, int adjoint_tier,
+                         void* stream) {
+  WLayout wl;
+  if (parse_wgmma(layout, scale, &wl) || n <= 0 || n % PW ||
+      tier != BF16 || adjoint_tier != BF16)
+    return (int)cudaErrorInvalidValue;
+  const Layout& lay = wl.lay;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Sizes sz = sizes_of(wl, n);
+  CUtensorMap mw, mf;
+  if (bf16_box_map(&mw, wb, FMAX, wl.ldwb) ||
+      bf16_box_map(&mf, factors, wl.frows, n))
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      per_point_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        wbar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err) return err;
+
+  pack_kernel<<<132, 256, 0, st>>>(W, (unsigned short*)wb, wl);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  float* wpart = partials;
+  float* bpart = partials + (size_t)KS * lay.rmax * lay.ldw;
+  PPArgs args{pts, W, B, ubar, gbar, side, bpart, (unsigned short*)factors, n};
+  per_point_kernel<<<(unsigned)sz.blocks, NTW, PP_SMEM, st>>>(mw, mf, args,
+                                                              wl);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  GTiles tiles;
+  tiles.count = 0;
+  for (int l = 0; l < lay.L; ++l)
+    for (int o0 = 0; o0 < lay.out[l]; o0 += 128)
+      for (int i0 = 0; i0 < lay.in[l]; i0 += 128)
+        tiles.t[tiles.count++] = GTile{l, o0, i0};
+  const long long chunk = ((n + KS - 1) / KS + 63) / 64 * 64;
+  wbar_kernel<<<dim3(tiles.count, KS), NTW, G_SMEM, st>>>(mf, wl, tiles, n,
+                                                          chunk, wpart);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  const int wblocks = 264;
+  reduce_kernel<<<wblocks + 64, 256, 0, st>>>(wpart, bpart, wbar, bbar, wl,
+                                              (int)sz.blocks, wblocks);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

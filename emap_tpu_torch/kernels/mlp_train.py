@@ -21,10 +21,24 @@ hand-derived second-order backward (port of emap_tpu/kernels/mlp_train.py).
   at the adjoint tier, bwd_precision or else precision
   (fields/udf.py::adjoint_tier), as `_train_bwd_math` runs them.
 * `train_bwd`: the wrapper. CPU tensors take the plain version; CUDA
-  tensors launch csrc/mlp_train.cu (replaces
-  emap_tpu/kernels/mlp_train.py::_pallas_train_bwd) or raise.
+  tensors launch the kernels that replace
+  emap_tpu/kernels/mlp_train.py::_pallas_train_bwd, or raise: at the
+  (bf16, bf16) pair every shipped conf trains at, csrc/mlp_train_wgmma.cu
+  (wgmma and TMA: a weight-pack prologue, the per-point chains writing the
+  weight-gradient factors in bf16, a GEMM over them, a fixed-order
+  reduce); at the 3xTF32 and mixed pairs, csrc/mlp_train.cu (mma.sync).
   `train_bwd.launches` counts the kernel launches, `train_bwd.tier_launches`
   the same by (primal, adjoint) tier pair (`pair_name`).
+  `train_bwd_mma_sync` runs mlp_train.cu at any pair, its bf16 one
+  included, for timing beside the wgmma kernels; the training path never
+  calls it.
+* The wgmma kernels' Python side: `wgmma_layout` (their weight pack and
+  factor rows), `wgmma_plan` (shared memory, registers and scratch of a
+  launch; refuses a net that does not fit), `pack_weights_bf16` (the
+  prologue's plain version), `train_bwd_factors` and `wbar_from_factors`
+  (the per-point kernel's and the GEMM's plain versions: factors stored as
+  bf16 lose nothing at the bf16 adjoint tier) and `train_bwd_launch_costs`
+  (FLOP and bytes of each launch).
 * `TrainQuery`: the autograd.Function joining the two (forward =
   mlp_query.value_and_grad, backward = train_bwd), the counterpart of the
   JAX package's `_train_query` custom_vjp.
@@ -54,6 +68,7 @@ from emap_tpu_torch.kernels.mlp_query import (
     encode_fused,
     kernel_layout,
     kernel_tier,
+    layer_dims,
     pack_weights,
     pe_jacT_fused,
     tier_dot,
@@ -70,15 +85,16 @@ def pair_name(primal: int, adjoint: int) -> str:
     return f"{TIER_NAMES[primal]}+{TIER_NAMES[adjoint]}"
 
 
-def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
-    """x (d0_pad, T) encoded, ubar (1, T), gbar (d0_pad, T) encoded-space
-    -> (wbar (row_max, sum_in), bbar (row_max, L)). Primal products at
+def _bwd_factors(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """The chains of the backward: x (d0_pad, T) encoded, ubar (1, T), gbar
+    (d0_pad, T) encoded-space -> per layer the weight-gradient factors
+    (r_l, q_hat_l, z_hat_l, u_l) in fp32, W-bar_l = r_l q_hat_l^T + z_hat_l
+    u_l^T, and b-bar_l = sum z_hat_l (out_l, 1). Primal products at
     cfg.precision, adjoint products at adjoint_tier(cfg)."""
     tp, ta = cfg.precision, adjoint_tier(cfg)
     layers = unpack_weights(w_pack, b_pack, cfg)
     L = len(layers)
     d0 = cfg.dims[0]
-    row_max = w_pack.shape[0]
 
     def W(l):
         return layers[l][0]
@@ -109,7 +125,8 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     def r_of(l):
         return dy if l == L - 1 else carries[l + 1] * ss[l]
 
-    w_contrib = [None] * L
+    q_hats = [None] * L
+    z_hats = [None] * L
     b_contrib = [None] * L
     s_hat = [None] * (L - 1)
     carryhat = r_hat_last = None
@@ -121,7 +138,7 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
                               dim=0)
         else:
             q_hat = carryhat
-        w_contrib[l] = tier_dot(r_of(l), q_hat.T, ta)
+        q_hats[l] = q_hat
         r_hat = tier_dot(W(l), q_hat, ta)
         if l < L - 1:
             s_hat[l] = r_hat * carries[l + 1]
@@ -138,18 +155,33 @@ def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
         else:
             s = ss[l]
             z_hat = a_hat * s + s_hat[l] * (100.0 * s * (1.0 - s))
-        w_contrib[l] = w_contrib[l] + tier_dot(z_hat, us[l].T, ta)
+        z_hats[l] = z_hat
         b_contrib[l] = torch.sum(z_hat, dim=1, keepdim=True)
         if l == 0:
             break
         u_hat = tier_dot(W(l).T, z_hat, ta)
         a_hat = u_hat[:-d0] * INV_SQRT2 if l in cfg.skip_in else u_hat
+    return ([(r_of(l), q_hats[l], z_hats[l], us[l]) for l in range(L)],
+            b_contrib)
 
+
+def _packed_grads(w_contrib, b_contrib, row_max):
     def pad(a):
         return torch.nn.functional.pad(a, (0, 0, 0, row_max - a.shape[0]))
 
     return (torch.cat([pad(w) for w in w_contrib], dim=1),
             torch.cat([pad(b) for b in b_contrib], dim=1))
+
+
+def _train_bwd_math(x, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """x (d0_pad, T) encoded, ubar (1, T), gbar (d0_pad, T) encoded-space
+    -> (wbar (row_max, sum_in), bbar (row_max, L)). Primal products at
+    cfg.precision, adjoint products at adjoint_tier(cfg)."""
+    ta = adjoint_tier(cfg)
+    factors, b_contrib = _bwd_factors(x, w_pack, b_pack, ubar, gbar, cfg)
+    w_contrib = [tier_dot(r, q_hat.T, ta) + tier_dot(z_hat, u.T, ta)
+                 for r, q_hat, z_hat, u in factors]
+    return _packed_grads(w_contrib, b_contrib, w_pack.shape[0])
 
 
 def train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
@@ -158,6 +190,172 @@ def train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     x, uf = encode_fused(x_T, cfg)
     gb = pe_jacT_fused(uf, gbar, cfg)
     return _train_bwd_math(x, w_pack, b_pack, ubar, gb, cfg)
+
+
+# csrc/mlp_train_wgmma.cu's fixed shapes: the widest layer (the rows of its
+# weight pack and activation tiles), the GEMM's point ranges, points a
+# per-point block (two warpgroups of 64), and a block's shared memory.
+WGMMA_FMAX = 256
+WGMMA_KS = 4
+WGMMA_BLOCK_POINTS = 128
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may take (H100)
+
+
+def wgmma_layout(cfg: UDFConfig) -> dict:
+    """The wgmma kernels' layout (csrc/mlp_train_wgmma.cu: parse_wgmma):
+    per layer kpad = in_l and opad = out_l rounded up to 64; the bf16
+    weight pack's column of each layer (offb) and its width (ldwb); the
+    rows of the factors U_l, Q-hat_l (kpad_l each), R_l, Z-hat_l (opad_l
+    each) in the (frows, N) factor array."""
+    dims = layer_dims(cfg)
+    kpad = [mlp_query.round_up(i, 64) for i, _ in dims]
+    opad = [mlp_query.round_up(o, 64) for _, o in dims]
+    offb = [sum(kpad[:l]) for l in range(len(dims))]
+    rows, row = {"U": [], "Q": [], "R": [], "Z": []}, 0
+    for k, o in zip(kpad, opad):
+        for name, size in (("U", k), ("Q", k), ("R", o), ("Z", o)):
+            rows[name].append(row)
+            row += size
+    return {"dims": dims, "kpad": kpad, "opad": opad, "offb": offb,
+            "ldwb": sum(kpad), "rows": rows, "frows": row}
+
+
+def wgmma_plan(cfg: UDFConfig, n: int) -> dict:
+    """Shared memory, registers and device scratch of one launch of the
+    wgmma kernels at n points, as csrc/mlp_train_wgmma.cu reckons them
+    (emap_mlp_train_wgmma_sizes). Raises ValueError for a net they do not
+    take, on every device: a layer wider than WGMMA_FMAX, or a plan past
+    the block's shared memory."""
+    mlp_query.check_kernel_cfg(cfg)
+    lay = wgmma_layout(cfg)
+    dims = lay["dims"]
+    if max(max(i, o) for i, o in dims) > WGMMA_FMAX:
+        raise ValueError(f"the wgmma kernels take layers up to {WGMMA_FMAX} "
+                         "wide")
+    box = 64 * 64 * 2
+    tile = WGMMA_FMAX * 64 * 2  # a warpgroup's activation tile, bf16
+    per_point = {
+        "weight ring (4 stages of a 64 x 128 bf16 chunk)": 4 * 2 * box,
+        "activation tiles (2 warpgroups x 2)": 4 * tile,
+        "bias sums (8 warps x 256 fp32)": 8 * WGMMA_FMAX * 4,
+        "head vectors and sums": (2 * 3 * 64 + 2 * 2 * 64) * 4,
+        "mbarriers": 2 * 4 * 8,
+        "alignment": 1024,
+    }
+    gemm = {"factor ring (4 stages of 128 x 64 bf16 of each factor)":
+            4 * 4 * box, "mbarriers": 2 * 4 * 8, "alignment": 1024}
+    smem = {"per_point": sum(per_point.values()), "gemm": sum(gemm.values())}
+    for name, total in smem.items():
+        if total > SMEM_LIMIT:
+            raise ValueError(f"the wgmma {name} kernel needs {total} bytes "
+                             f"of shared memory, more than {SMEM_LIMIT}")
+    blocks = -(-n // WGMMA_BLOCK_POINTS)
+    L = len(dims)
+    rmax = max(o for _, o in dims)
+    ldw = sum(i for i, _ in dims)
+    return {
+        "smem": smem, "per_point_smem": per_point, "gemm_smem": gemm,
+        # a consumer thread's fp32 accumulators: the running sum and the
+        # 64-deep chunk's of one m64n128 half (setmaxnreg: consumers 232,
+        # the producer warpgroup 40)
+        "registers": {"accumulators": 2 * 64, "consumer": 232,
+                      "producer": 40},
+        "blocks": blocks,
+        "wb": WGMMA_FMAX * lay["ldwb"],
+        "frows": lay["frows"],
+        "side": 2 * blocks * (L - 1) * 2 * WGMMA_FMAX * 64,
+        "partials": WGMMA_KS * rmax * ldw + blocks * rmax * L,
+    }
+
+
+def pack_weights_bf16(w_pack, cfg: UDFConfig):
+    """The wgmma kernels' weight pack: (WGMMA_FMAX, ldwb) bf16 with layer
+    l's block of w_pack at column offb_l, its in_l columns zero-padded to
+    kpad_l and rows past rmax zero; each value rounded to bf16 as tier_dot
+    rounds it. The plain version of their prologue (pack_kernel)."""
+    lay = wgmma_layout(cfg)
+    out = torch.zeros(WGMMA_FMAX, lay["ldwb"], dtype=torch.bfloat16,
+                      device=w_pack.device)
+    off = 0
+    for (i, _), col in zip(lay["dims"], lay["offb"]):
+        out[: w_pack.shape[0], col: col + i] = w_pack[:, off: off + i].to(
+            torch.bfloat16)
+        off += i
+    return out
+
+
+def train_bwd_factors(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """The per-point kernel's plain version: (F, bbar) with F (frows, N)
+    bf16 the weight-gradient factors as the kernel stores them (rows of
+    wgmma_layout: U_l, Q-hat_l, R_l, Z-hat_l, each rounded to bf16, padding
+    rows zero) and bbar the bias gradient summed from the fp32 z-hat, at
+    cfg's tiers."""
+    x, uf = encode_fused(x_T, cfg)
+    gb = pe_jacT_fused(uf, gbar, cfg)
+    factors, b_contrib = _bwd_factors(x, w_pack, b_pack, ubar, gb, cfg)
+    lay = wgmma_layout(cfg)
+    F = torch.zeros(lay["frows"], x_T.shape[1], dtype=torch.bfloat16,
+                    device=x_T.device)
+    for l, (r, q_hat, z_hat, u) in enumerate(factors):
+        for name, v in (("U", u), ("Q", q_hat), ("R", r), ("Z", z_hat)):
+            row = lay["rows"][name][l]
+            F[row: row + v.shape[0]] = v.to(torch.bfloat16)
+    row_max = w_pack.shape[0]
+    bbar = torch.cat([torch.nn.functional.pad(b, (0, 0, 0, row_max
+                                                  - b.shape[0]))
+                      for b in b_contrib], dim=1)
+    return F, bbar
+
+
+def wbar_from_factors(F, cfg: UDFConfig):
+    """The GEMM's plain version: W-bar packed like pack_weights from the
+    factors F of train_bwd_factors, W-bar_l = R_l Q-hat_l^T + Z-hat_l
+    U_l^T with fp32 products and sums of the bf16 values."""
+    lay = wgmma_layout(cfg)
+    dims = lay["dims"]
+    row_max = max(o for _, o in dims)
+
+    def block(name, l, size):
+        row = lay["rows"][name][l]
+        return F[row: row + size].to(torch.float32)
+
+    w_contrib = [torch.matmul(block("R", l, o), block("Q", l, i).T)
+                 + torch.matmul(block("Z", l, o), block("U", l, i).T)
+                 for l, (i, o) in enumerate(dims)]
+    return _packed_grads(w_contrib, [torch.zeros(o, 1, device=F.device)
+                                     for _, o in dims], row_max)[0]
+
+
+def train_bwd_launch_costs(cfg: UDFConfig, n: int) -> dict:
+    """Each launch of the wgmma kernels at n points: the FLOP of its
+    products (2 * in * out each, unpadded shapes) and the bytes it must
+    move (each input read once, each output written once), and the side
+    arrays' device traffic of the per-point kernel beside them."""
+    lay = wgmma_layout(cfg)
+    dims = lay["dims"]
+    shapes = [(i, o) for _, i, o in cfg.layer_shapes()]
+    total = sum(i * o for i, o in shapes)
+    first = shapes[0][0] * shapes[0][1]
+    L, rmax, ldw = len(dims), max(o for _, o in dims), sum(
+        i for i, _ in dims)
+    blocks = -(-n // WGMMA_BLOCK_POINTS)
+    f32, bf16 = 4, 2
+    w_bytes, wb_bytes = f32 * rmax * ldw, bf16 * WGMMA_FMAX * lay["ldwb"]
+    b_bytes, factor_bytes = f32 * rmax * L, bf16 * lay["frows"] * n
+    bpart = f32 * blocks * rmax * L
+    wpart = f32 * WGMMA_KS * rmax * ldw
+    # sigmoid(100 z_l) written once and read three times; carry_{l+1}
+    # written, read, overwritten by s-hat_l and read: 8 passes over the
+    # 128-wide halves of each hidden layer's out_l features a point
+    side = 8 * f32 * n * sum(-(-o // 128) * 128 for _, o in dims[:-1])
+    return {
+        "pack": {"flops": 0, "bytes": w_bytes + wb_bytes},
+        "per_point": {"flops": 2 * (4 * total - 2 * first) * n,
+                      "bytes": f32 * 17 * n + wb_bytes + b_bytes
+                      + factor_bytes + bpart, "side_bytes": side},
+        "gemm": {"flops": 4 * total * n, "bytes": factor_bytes + wpart},
+        "reduce": {"flops": 0, "bytes": wpart + bpart + w_bytes + b_bytes},
+    }
 
 
 def _train_lib():
@@ -176,16 +374,63 @@ def _train_lib():
     return lib
 
 
-def train_bwd(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
-    """(wbar, bbar) for cotangents ubar (1, N), gbar (8, N) at raw points
-    x_T (8, N), at cfg's primal and adjoint tiers. CPU tensors take
-    train_bwd_plain; CUDA tensors launch the kernel."""
-    if not x_T.is_cuda:
-        return train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg)
-    n = check_operands(cfg, (x_T, w_pack, b_pack, ubar, gbar))
-    tiers = kernel_tier(cfg.precision), kernel_tier(adjoint_tier(cfg))
-    if ubar.shape != (1, n) or gbar.shape != (8, n):
-        raise ValueError("cotangents must be ubar (1, N) and gbar (8, N)")
+def _wgmma_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_train_wgmma")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_train_wgmma_sizes.argtypes = [vp, ctypes.c_longlong, vp]
+        lib.emap_mlp_train_wgmma_sizes.restype = ctypes.c_int
+        lib.emap_mlp_train_wgmma.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
+            vp, ctypes.c_float, ctypes.c_int, ctypes.c_int, vp]
+        lib.emap_mlp_train_wgmma.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def wgmma_sizes(cfg: UDFConfig, n: int) -> dict:
+    """The wgmma library's own reckoning of a launch at n points (card
+    only; the CPU reckons wgmma_plan): wb, frows, side, partials,
+    per_point_smem, gemm_smem, blocks."""
+    out = (ctypes.c_longlong * 7)()
+    if _wgmma_lib().emap_mlp_train_wgmma_sizes(
+            kernel_layout(cfg).ctypes.data, n, out):
+        raise ValueError("layout refused by the wgmma kernels")
+    return dict(zip(("wb", "frows", "side", "partials", "per_point_smem",
+                     "gemm_smem", "blocks"), list(out)))
+
+
+def _launch_wgmma(x_T, w_pack, b_pack, ubar, gbar, cfg, n):
+    """(wbar, bbar, scratch): the wgmma launch and the scratch it wrote."""
+    lib = _wgmma_lib()
+    plan = wgmma_plan(cfg, n)
+    dev = x_T.device
+    wbar = torch.empty_like(w_pack)
+    bbar = torch.empty_like(b_pack)
+    wb = torch.empty(plan["wb"], device=dev, dtype=torch.bfloat16)
+    factors = torch.empty(plan["frows"] * n, device=dev, dtype=torch.bfloat16)
+    side = torch.empty(plan["side"], device=dev, dtype=torch.float32)
+    partials = torch.empty(plan["partials"], device=dev, dtype=torch.float32)
+    err = lib.emap_mlp_train_wgmma(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), ubar.data_ptr(),
+        gbar.data_ptr(), wbar.data_ptr(), bbar.data_ptr(), wb.data_ptr(),
+        factors.data_ptr(), side.data_ptr(), partials.data_ptr(), n,
+        kernel_layout(cfg).ctypes.data, float(cfg.scale), 1, 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mlp_train_wgmma kernel launch failed: CUDA "
+                           f"error {err}")
+    rows, L = w_pack.shape[0], b_pack.shape[1]
+    return wbar, bbar, {
+        "wb": wb.view(WGMMA_FMAX, -1), "factors": factors.view(-1, n),
+        "wpart": partials[: WGMMA_KS * w_pack.numel()].view(
+            WGMMA_KS, rows, -1),
+        "bpart": partials[WGMMA_KS * w_pack.numel():].view(-1, rows, L)}
+
+
+def _launch_mma_sync(x_T, w_pack, b_pack, ubar, gbar, cfg, n, tiers):
     lib = _train_lib()
     layout = kernel_layout(cfg)
     rows, part = ctypes.c_longlong(), ctypes.c_longlong()
@@ -205,13 +450,58 @@ def train_bwd(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
         stream)
     if err:
         raise RuntimeError(f"mlp_train kernel launch failed: CUDA error {err}")
+    return wbar, bbar
+
+
+def _operands(x_T, w_pack, b_pack, ubar, gbar, cfg):
+    n = check_operands(cfg, (x_T, w_pack, b_pack, ubar, gbar))
+    if ubar.shape != (1, n) or gbar.shape != (8, n):
+        raise ValueError("cotangents must be ubar (1, N) and gbar (8, N)")
+    return n, (kernel_tier(cfg.precision), kernel_tier(adjoint_tier(cfg)))
+
+
+def train_bwd(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """(wbar, bbar) for cotangents ubar (1, N), gbar (8, N) at raw points
+    x_T (8, N), at cfg's primal and adjoint tiers. CPU tensors take
+    train_bwd_plain; CUDA tensors launch the kernels: the wgmma ones at the
+    (bf16, bf16) pair, mlp_train.cu's at the others."""
+    if not x_T.is_cuda:
+        return train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg)
+    n, tiers = _operands(x_T, w_pack, b_pack, ubar, gbar, cfg)
+    if tiers == (1, 1):
+        out = _launch_wgmma(x_T, w_pack, b_pack, ubar, gbar, cfg, n)[:2]
+    else:
+        out = _launch_mma_sync(x_T, w_pack, b_pack, ubar, gbar, cfg, n, tiers)
     train_bwd.launches += 1
     train_bwd.tier_launches[pair_name(*tiers)] += 1
-    return wbar, bbar
+    return out
 
 
 train_bwd.launches = 0
 train_bwd.tier_launches = {pair_name(p, a): 0 for p in (0, 1) for a in (0, 1)}
+
+
+def train_bwd_wgmma_parts(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """One launch of the wgmma kernels on CUDA tensors at cfg (the bf16
+    pair) with what each launch wrote: wbar, bbar and the scratch wb (the
+    bf16 pack), factors (frows, N), wpart (KS, rmax, ldw) and bpart
+    (blocks, rmax, L), to hold each launch against its plain version.
+    Counted in no launch count; the training path never calls it."""
+    n, tiers = _operands(x_T, w_pack, b_pack, ubar, gbar, cfg)
+    if tiers != (1, 1):
+        raise ValueError("the wgmma kernels run the (bf16, bf16) pair only")
+    wbar, bbar, scratch = _launch_wgmma(x_T, w_pack, b_pack, ubar, gbar, cfg,
+                                        n)
+    return dict(scratch, wbar=wbar, bbar=bbar)
+
+
+def train_bwd_mma_sync(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
+    """csrc/mlp_train.cu at cfg's pair, its (bf16, bf16) instantiation
+    included, on CUDA tensors: the mma.sync design timed beside the wgmma
+    kernels. Counted in no launch count; the training path never calls
+    it."""
+    n, tiers = _operands(x_T, w_pack, b_pack, ubar, gbar, cfg)
+    return _launch_mma_sync(x_T, w_pack, b_pack, ubar, gbar, cfg, n, tiers)
 
 
 def train_bwd_flops(cfg: UDFConfig) -> int:

@@ -17,13 +17,18 @@ error against the plain PyTorch versions (udf, grad, the worst W-bar/b-bar
 block), and ptxas' registers and spills lead each ablation's lines.
 Every ablation runs at the 3xTF32 tier (precision "high", fp32 accuracy),
 the tier the design choices were made for; its patches leave the bf16
-tier's kernels in the same libraries building. Ablations that drop work
+tier's kernels in the same libraries building. The wgmma_* ablations
+patch #2's wgmma kernels (mlp_train_wgmma.cu) and are timed at the
+(bf16, bf16) pair those serve, with their per-point and GEMM kernels from
+torch.profiler and the max and mean error against the plain version at
+that pair. Ablations that drop work
 give wrong results by design: they measure what that work costs. The card's name and power limit lead the output. No CPU
 fallback: without CUDA it fails.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import shutil
@@ -357,6 +362,73 @@ __global__ void __launch_bounds__(NT, 1)
     }
     __syncthreads();""")]},
 }
+# #2's wgmma kernels (mlp_train_wgmma.cu), timed at the (bf16, bf16) pair
+# they serve. The side arrays' L2 prefetch taken out; one product ahead
+# as well as the current one; the side arrays' traffic taken out (constant
+# sigmoids and carries: wrong results, the traffic's cost); one wgmma
+# chain a contraction (no fresh accumulator a 64-deep chunk); and two more
+# costs, below.
+WGMMA_SIDE_READS = (
+    ("      const float4 sv = *side(l - 1, 0, h, j);\n      const float sg[4]",
+     "      const float4 sv = make_float4(0.5f, 0.5f, 0.5f, 0.5f);\n"
+     "      const float sg[4]"),
+    ("      const float4 cv = *cp, sv = *side(l, 0, h, j);",
+     "      const float4 cv = make_float4(0.5f, 0.5f, 0.5f, 0.5f), sv = cv;"),
+    ("      const float4 sv = *side(l - 1, 0, h, j), hv = *side(l - 1, 1, h, "
+     "j);", "      const float4 sv = make_float4(0.5f, 0.5f, 0.5f, 0.5f), "
+     "hv = sv;"))
+WGMMA_SIDE_WRITES = tuple(
+    (f"      {lhs} = make_float4({v}[0], {v}[1], {v}[2], {v}[3]);",
+     f"      if ({v}[0] == 12345.f) {lhs} = make_float4({v}[0], {v}[1], "
+     f"{v}[2], {v}[3]);")
+    for lhs, v in (("*side(l, 0, h, j)", "sg"), ("*side(l - 1, 1, h, j)", "ch"),
+                   ("*cp", "sh")))
+WGMMA_PREFETCHES = (
+    ("    prefetch(l - 1, 0);\n    for (int h = 0; h < halves(N); ++h) {\n"
+     "      product_half<1>(acc, part, smem_u32(cur), ring_addr, K, stage, "
+     "phase,\n                      full, empty);\n      epi_grad(l, h);",
+     "    prefetch(l - 2, 0);"),
+    ("    prefetch(l, 0);\n    prefetch(l, 1);\n",
+     "    prefetch(l + 1, 0);\n    prefetch(l + 1, 1);\n"),
+    ("    prefetch(l - 1, 0);\n    prefetch(l - 1, 1);\n",
+     "    prefetch(l - 2, 0);\n    prefetch(l - 2, 1);\n"))
+ABLATIONS.update({
+    "wgmma_no_prefetch": {"mlp_train_wgmma.cu": [
+        (old, old.replace("    prefetch(l - 1, 0);\n", "") if "epi_grad" in old
+         else "") for old, _ in WGMMA_PREFETCHES]},
+    "wgmma_prefetch_ahead": {"mlp_train_wgmma.cu": [
+        ("    if (t == 0)\n      l2_prefetch(",
+         "    if (t == 0 && l >= 0 && l < L - 1)\n      l2_prefetch(")] + [
+        (old, old + "\n" + extra if "epi_grad" not in old
+         else old.replace("    prefetch(l - 1, 0);\n",
+                          "    prefetch(l - 1, 0);\n" + extra + "\n"))
+        for old, extra in WGMMA_PREFETCHES]},
+    "wgmma_no_side": {"mlp_train_wgmma.cu": list(WGMMA_SIDE_READS
+                                                 + WGMMA_SIDE_WRITES)},
+    # the forward epilogue's softplus and sigmoid replaced by a scale and a
+    # constant (wrong results: what the transcendental math costs)
+    "wgmma_no_epilogue_math": {"mlp_train_wgmma.cu": [(
+        "          sig_softplus100(acc[4 * j + e] + a.B[f * L + l], sig, act);",
+        "          sig = 0.5f;\n"
+        "          act = (acc[4 * j + e] + a.B[f * L + l]) * 0.01f;")]},
+    # no TMA store of the weight-gradient factors (the GEMM then reads
+    # stale scratch: what the factors' 2 GB of writes cost)
+    "wgmma_no_factor_stores": {"mlp_train_wgmma.cu": [(
+        "        tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);",
+        "        if (row < 0)\n"
+        "          tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);")]},
+    "wgmma_no_promotion": {"mlp_train_wgmma.cu": [
+        ("""      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
+                           TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), s);""",
+         """      wgmma_m64n128<1, TB>(acc, desc_mnmajor(a, s),
+                           TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), 1);"""),
+        ("""      wgmma_m64n128<0, 0>(part, desc_kmajor(b + cw * BOX_BYTES, s),
+                          desc_kmajor(b + 2 * BOX_BYTES, s), s);""",
+         """      wgmma_m64n128<0, 0>(acc, desc_kmajor(b + cw * BOX_BYTES, s),
+                          desc_kmajor(b + 2 * BOX_BYTES, s), 1);"""),
+        ("    for (int i = 0; i < 64; ++i) acc[i] += part[i];\n",
+         "    for (int i = 0; i < 64; ++i) part[i] = 0.f;\n")]},
+})
 # The libraries an ablation is timed on where not every library its
 # patches reach: p128's tile does not fit the training kernels' shared
 # memory.
@@ -428,6 +500,9 @@ def main(names) -> int:
     xg[:3] = torch.rand(3, grid_n, generator=g, device="cuda") * 2 - 1
     u_p, g_p = tq.value_and_grad_plain(x, w, b, cfg)
     bwd_p = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, cfg), cfg)
+    bf16 = dataclasses.replace(cfg, precision="default")
+    bwd_bf = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, bf16),
+                               cfg)
     ug_p = tq.value_plain(xg, w, b, cfg)
 
     def rel(a, c):
@@ -477,7 +552,7 @@ def main(names) -> int:
                         torch.cuda.synchronize()
                     parts = {}
                     for e in prof.key_averages():
-                        m = re.search(r"(\w+_kernel)\(", e.key)
+                        m = re.search(r"(\w+_kernel)[<(]", e.key)
                         if m:
                             parts[m.group(1)] = getattr(
                                 e, "device_time_total", 0.0) / 1e3
@@ -487,6 +562,31 @@ def main(names) -> int:
                           f"wbar_partials "
                           f"{parts.get('wbar_partials_kernel', 0.0):.3f})  "
                           f"max rel err wbar {worst:.2e}", flush=True)
+                if "mlp_train_wgmma" in libs:
+                    bwd = tq.unpack_weights(
+                        *tt.train_bwd(x, w, b, ub, gb, bf16), cfg)
+                    worst = max(rel(a, c) for got, want in zip(bwd, bwd_bf)
+                                for a, c in zip(got, want))
+                    mean = max(float((a - c).abs().mean()
+                                     / (c.abs().max() + 1e-30))
+                               for got, want in zip(bwd, bwd_bf)
+                               for a, c in zip(got, want))
+                    bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, bf16))
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        tt.train_bwd(x, w, b, ub, gb, bf16)
+                        torch.cuda.synchronize()
+                    parts = {}
+                    for e in prof.key_averages():
+                        m = re.search(r"(\w+_kernel)[<(]", e.key)
+                        if m:
+                            parts[m.group(1)] = getattr(
+                                e, "device_time_total", 0.0) / 1e3
+                    print(f"round {rnd} {name:20s} #2 bf16 wgmma {bwd_ms:8.3f} "
+                          f"ms (per_point "
+                          f"{parts.get('per_point_kernel', 0.0):.3f}, wbar "
+                          f"{parts.get('wbar_kernel', 0.0):.3f})  max rel "
+                          f"err wbar {worst:.2e}, mean {mean:.2e}",
+                          flush=True)
                 if "mlp_value" in libs:
                     ug = tq.value(xg, w, b, cfg)
                     same = torch.equal(ug, tq.value(xg, w, b, cfg))

@@ -326,9 +326,11 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value"])
+@pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
+                                 "mlp_train_wgmma"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
-    """Each kernel library's SASS holds tensor-core instructions (HMMA)."""
+    """Each kernel library's SASS holds tensor-core instructions: HMMA
+    (mma.sync), or HGMMA (wgmma) in the wgmma library."""
     import shutil
     import subprocess
 
@@ -338,7 +340,90 @@ def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", build.lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
-    assert sass.count("HMMA") > 0
+    assert sass.count("HGMMA" if lib == "mlp_train_wgmma" else "HMMA") > 0
+
+
+# The wgmma kernels (#2 at the bf16 pair) against train_bwd_plain at that
+# pair: chip_smoke.py's bf16 gates, 1e-2 of each W-bar / b-bar block's
+# largest entry (a bf16 flip is 2^-7 of its term) and a mean error at least
+# BF16_SEPARATION times smaller than against the fp32 plain version.
+WGMMA_RTOL = 1e-2
+
+
+def _bwd_blocks(out, cfg):
+    return [t for layer in tq.unpack_weights(*out, cfg) for t in layer]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4160])
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_wgmma_train_bwd_matches_plain(cuda, name, n):
+    """train_bwd at the (bf16, bf16) pair launches the wgmma kernels: per
+    block within WGMMA_RTOL of train_bwd_plain at that pair and nearer it
+    than the fp32 plain version, two launches bit-identical, one launch
+    counted under "bf16". n = 4160 is 32.5 blocks of 128 points: the last
+    block's second warpgroup holds no point."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, ubar, gbar = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tt.train_bwd.tier_launches)
+    runs = [_bwd_blocks(tt.train_bwd(x, w, b, ubar, gbar, cfg), cfg)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tt.train_bwd.tier_launches["bf16"] == before["bf16"] + 2
+    assert all(tt.train_bwd.tier_launches[k] == v
+               for k, v in before.items() if k != "bf16")
+    want = _bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar, cfg), cfg)
+    want32 = _bwd_blocks(tt.train_bwd_plain(
+        x, w, b, ubar, gbar, dataclasses.replace(cfg, precision="high")),
+        cfg)
+    for i, (g, again, wt) in enumerate(zip(*runs, want)):
+        assert torch.equal(g, again), i
+        assert bool(torch.isfinite(g).all()), i
+        assert max_rel(g, wt) < WGMMA_RTOL, i
+    assert BF16_SEPARATION * max(
+        mean_rel(g, wt) for g, wt in zip(runs[0], want)) < max(
+        mean_rel(g, w32) for g, w32 in zip(runs[0], want32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_wgmma_train_bwd_at_step_n(cuda, name):
+    """At the training step's N = 116,736 points, ABC and Replica width: the
+    wgmma kernels against train_bwd_plain at the bf16 pair per block, and
+    bit-identical across two launches."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, ubar, gbar = points(116_736, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    runs = [_bwd_blocks(tt.train_bwd(x, w, b, ubar, gbar, cfg), cfg)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = _bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar, cfg), cfg)
+    for i, (g, again, wt) in enumerate(zip(*runs, want)):
+        assert torch.equal(g, again), i
+        assert max_rel(g, wt) < WGMMA_RTOL, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_wgmma_pack_and_plan(cuda, name):
+    """The wgmma prologue equals pack_weights_bf16 bit for bit, and the
+    library reckons a launch's scratch and shared memory as wgmma_plan."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, ubar, gbar = points(4160, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    parts = tt.train_bwd_wgmma_parts(x, w, b, ubar, gbar, cfg)
+    assert torch.equal(parts["wb"], tt.pack_weights_bf16(w, cfg))
+    plan = tt.wgmma_plan(cfg, 4160)
+    sizes = tt.wgmma_sizes(cfg, 4160)
+    assert sizes == {"wb": plan["wb"], "frows": plan["frows"],
+                     "side": plan["side"], "partials": plan["partials"],
+                     "per_point_smem": plan["smem"]["per_point"],
+                     "gemm_smem": plan["smem"]["gemm"],
+                     "blocks": plan["blocks"]}
 
 
 def _train_conf(tmp_path, upsampling_type):
