@@ -8,7 +8,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
      print each kernel's ptxas registers and spills, and count the
      tensor-core instructions in every kernel library's SASS: HGMMA
-     (wgmma) in mlp_train_wgmma, HMMA (mma.sync) in the others;
+     (wgmma) in mlp_query_wgmma and mlp_train_wgmma, HMMA (mma.sync) in the
+     others;
   3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
      against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
@@ -21,14 +22,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (4,194,304 points, the DTU and Replica confs); a bf16-tier kernel is
      also held against the fp32 plain version, and must sit nearer its own
      tier's; two launches of each kernel on the same inputs must agree bit
-     for bit; #2 at the (bf16, bf16) pair runs on the wgmma kernels
-     (csrc/mlp_train_wgmma.cu), whose four launches (prologue, per-point,
-     GEMM, reduce) get rows of their own: device time from torch.profiler,
-     bound, each held against the plain version of that launch, and the
-     GEMM's library_ms (torch.bmm on the same bf16 factors); then
-     csrc/mlp_train.cu's mma.sync bf16 instantiation and the wgmma kernels
-     are timed in turns (old, new, new, old), and the wgmma kernels must be
-     the faster;
+     for bit; #1a at the bf16 tier runs on the wgmma kernels of
+     csrc/mlp_query_wgmma.cu, whose two launches (prologue, chain kernel)
+     get rows of their own: device time from torch.profiler, bound, the
+     chain kernel's sigmoid side-array bytes, each held against the plain
+     version of that launch; #2 at the (bf16, bf16) pair runs on those of
+     csrc/mlp_train_wgmma.cu, whose four launches (prologue, per-point,
+     GEMM, reduce) get rows of their own likewise, with the GEMM's
+     library_ms (torch.bmm on the same bf16 factors); for each, the
+     mma.sync bf16 instantiation it replaced (csrc/mlp_query.cu,
+     csrc/mlp_train.cu) and the wgmma kernels are timed in turns (old, new,
+     new, old), and the wgmma kernels must be the faster;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it (its tiers: the training field query and the up-sampler at the bf16
      tier "default", extraction at "high"), train END_ITER steps at full
@@ -127,7 +131,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      shapes and dtypes; and cv2 absent from sys.modules.
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it (a launch row of the wgmma kernels, named
-"mlp_train_bwd/bf16:<launch>", its wrapper row's): the main path (phases 4 and 6), a phase 9 run, or
+"mlp_value_and_grad/bf16:<launch>" or "mlp_train_bwd/bf16:<launch>", its
+wrapper row's): the main path (phases 4 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
 and ".../256^3"; phase 10's rows of tiers no path of the conf runs are
 printed and held, not listed).
@@ -481,8 +486,9 @@ def same_bits(name, kern, args, ucfg) -> None:
 
 
 # The tensor-core instruction each library must hold: wgmma (HGMMA) in the
-# Hopper library of #2's bf16 pair, mma.sync (HMMA) in the others.
-WGMMA_LIBS = ("mlp_train_wgmma",)
+# Hopper libraries of #1a's bf16 tier and #2's bf16 pair, mma.sync (HMMA)
+# in the others.
+WGMMA_LIBS = ("mlp_query_wgmma", "mlp_train_wgmma")
 
 
 def tensor_core_sass(names) -> None:
@@ -534,6 +540,16 @@ def bwd_flops(ucfg) -> tuple:
     return primal, mlp_train.train_bwd_flops(ucfg) - primal
 
 
+def query_source(ucfg) -> str:
+    """The source of #1a's kernel at ucfg's tier: the wgmma kernel at the
+    bf16 tier, mlp_query.cu's mma.sync at 3xTF32."""
+    from emap_tpu_torch.kernels import mlp_query
+
+    if mlp_query.kernel_tier(ucfg.precision) == 1:
+        return "emap_tpu_torch/csrc/mlp_query_wgmma.cu"
+    return "emap_tpu_torch/csrc/mlp_query.cu"
+
+
 def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
     """The training kernels at the step's shape and the grid value kernel
     at each of `grid_shapes` (points a launch: a 128^3 pass, GRID_CHUNK of a
@@ -575,13 +591,15 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
         cfg = at_tier(ucfg, tier)
         same_bits("mlp_value_and_grad", mlp_query.value_and_grad, (x, w, b),
                   cfg)
+        wgmma = mlp_query.kernel_tier(cfg.precision) == 1
         rows.append(kernel_row(
             "mlp_value_and_grad", mlp_query.value_and_grad,
             mlp_query.value_and_grad_plain, query_blocks, (x, w, b), cfg,
-            "emap_tpu_torch/csrc/mlp_query.cu",
-            "emap_tpu/kernels/mlp_query.py:363",
+            query_source(cfg), "emap_tpu/kernels/mlp_query.py:363",
             f32 * (8 * n + n + 8 * n) + pack_bytes,
             (mlp_query.query_flops(cfg) * n, 0)))
+        if wgmma:
+            rows += query_wgmma_rows((x, w, b), cfg, rows[-1])
     for tier in KERNEL_TIERS["mlp_train_bwd"]:
         cfg = at_tier(ucfg, tier)
         same_bits("mlp_train_bwd", mlp_train.train_bwd,
@@ -744,31 +762,58 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
                    wblocks(*plain_reduce(parts)), KERNEL_RTOL),
     }
     lib_ms, lib_form = gemm_library_ms(parts["factors"], ucfg)
+    rows = launch_rows(whole, WGMMA_LAUNCHES, times, plain_ms, held, costs,
+                       {"gemm": (lib_ms, lib_form)})
+    in_turns(
+        whole, "mma.sync bf16 (csrc/mlp_train.cu)",
+        lambda: mlp_train.train_bwd_mma_sync(*args, ucfg),
+        lambda: mlp_train.train_bwd_wgmma_parts(*args, ucfg))
+    old = blocks_of(mlp_train.train_bwd_mma_sync(*args, ucfg), ucfg)
+    new = blocks_of((parts["wbar"], parts["bbar"]), ucfg)
+    want = blocks_of(mlp_train.train_bwd_plain(*args, ucfg), ucfg)
+    print(f"kernel {whole['name']}: max rel err against the plain version "
+          f"{errors(old, want)[1]:.3e} (mma.sync), "
+          f"{errors(new, want)[1]:.3e} (wgmma)", flush=True)
+    return rows
+
+
+def launch_rows(whole, launches, times, plain_ms, held, costs,
+                library=None) -> list:
+    """A row for each launch of a kernel set (`launches`: its kernel's name
+    in the profile -> launch), beside the row of the whole function: the
+    launch's device time, its plain version's time and the bound from its
+    cost, its output held against that plain version (held[launch]: got
+    blocks, want blocks, tolerance), the side arrays' bytes where it moves
+    any, and a library call's time where `library` names one."""
+    import torch
+
+    library = library or {}
     rows = []
-    for kernel, launch in WGMMA_LAUNCHES.items():
+    for kernel, launch in launches.items():
         got, want, tol = held[launch]
         abs_err, rel_err, worst = errors(got, want)
         cost = costs[launch]
         t_bytes, t_ops = cost["bytes"] / HBM_RATE, cost["flops"] / BF16_PEAK
+        lib_ms, lib_form = library.get(launch, (None, ""))
         row = dict(whole, name=f"{whole['name']}:{launch}",
                    part_of=whole["name"], max_abs_err=abs_err,
                    max_rel_err=rel_err, worst_block=worst,
                    ms=times[kernel], plain_ms=plain_ms[launch],
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=lib_ms if launch == "gemm" else None,
-                   flops=cost["flops"], bytes=cost["bytes"])
+                   library_ms=lib_ms, flops=cost["flops"],
+                   bytes=cost["bytes"])
         for k in ("max_rel_err_vs_fp32", "mean_err", "mean_err_vs_fp32",
                   "head_sign_flips"):
             row.pop(k, None)
         extra = ""
-        if launch == "per_point":
+        if "side_bytes" in cost:
             row["side_bytes"] = cost["side_bytes"]
             extra = (f"; side arrays {cost['side_bytes'] / 1e9:.2f} GB "
                      f"({1e3 * cost['side_bytes'] / HBM_RATE:.3f} ms at the "
                      f"memory rate)")
-        if launch == "gemm":
-            extra = f"; library {lib_ms:.3f} ms ({lib_form})"
+        if lib_ms is not None:
+            extra += f"; library {lib_ms:.3f} ms ({lib_form})"
         print(f"kernel {row['name']}: {kernel}, {row['ms']:.3f} ms, plain "
               f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}: {cost['flops'] / 1e12:.3f} TFLOP, "
@@ -784,24 +829,74 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
     print(f"kernel {whole['name']}: launches by device time "
           f"{ {k: round(v, 3) for k, v in times.items()} }, {total:.3f} ms "
           f"in all", flush=True)
+    return rows
 
-    # the mma.sync bf16 instantiation against the wgmma kernels, in turns
-    turns = {"mma.sync": [], "wgmma": []}
-    fns = {"mma.sync": lambda: mlp_train.train_bwd_mma_sync(*args, ucfg),
-           "wgmma": lambda: mlp_train.train_bwd_wgmma_parts(*args, ucfg)}
-    for name in ("mma.sync", "wgmma", "wgmma", "mma.sync"):
+
+def in_turns(whole, old_name, old_fn, new_fn) -> None:
+    """The mma.sync design (`old_fn`) and the wgmma one (`new_fn`) timed in
+    turns (old, new, new, old) on the same inputs, the times into `whole`
+    (in_turns_ms); the wgmma kernels must be the faster."""
+    turns = {"old": [], "new": []}
+    fns = {"old": old_fn, "new": new_fn}
+    for name in ("old", "new", "new", "old"):
         turns[name].append(time_ms(fns[name], 5)[0])
-    old = blocks_of(mlp_train.train_bwd_mma_sync(*args, ucfg), ucfg)
-    new = blocks_of((parts["wbar"], parts["bbar"]), ucfg)
-    want = blocks_of(mlp_train.train_bwd_plain(*args, ucfg), ucfg)
-    print(f"kernel {whole['name']}: in turns (old, new, new, old): mma.sync "
-          f"bf16 (csrc/mlp_train.cu) {turns['mma.sync']} ms, wgmma "
-          f"{turns['wgmma']} ms; max rel err against the plain version "
+    print(f"kernel {whole['name']}: in turns (old, new, new, old): "
+          f"{old_name} {turns['old']} ms, wgmma {turns['new']} ms", flush=True)
+    check(max(turns["new"]) < min(turns["old"]),
+          f"{whole['name']}: the wgmma kernels ({turns['new']} ms) do not "
+          f"beat the {old_name} ({turns['old']} ms)")
+    whole["in_turns_ms"] = {old_name: turns["old"], "wgmma": turns["new"]}
+
+
+QUERY_WGMMA_LAUNCHES = {  # kernel name in the profile: launch
+    "pack_kernel": "pack", "query_kernel": "query"}
+
+
+def query_wgmma_rows(args, ucfg, whole: dict) -> list:
+    """#1a's wgmma kernels at the bf16 tier, launch by launch, on the
+    inputs of `whole` (their row as one function): each launch's device
+    time (torch.profiler), its bound from query_wgmma_launch_costs, and its
+    output against the plain version of that launch on the same inputs:
+    the prologue against pack_weights_bf16 (bit for bit), the chain kernel's
+    udf and grad against value_and_grad_plain (BF16_KERNEL_RTOL a block, the
+    gradient up to the abs head's sign at the surface). Then
+    csrc/mlp_query.cu's mma.sync bf16 instantiation and the wgmma kernels
+    timed in turns (old, new, new, old)."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query
+
+    x, w = args[:2]
+    n = x.shape[1]
+    parts = mlp_query.value_and_grad_wgmma_parts(*args, ucfg)
+    torch.cuda.synchronize()
+    costs = mlp_query.query_wgmma_launch_costs(ucfg, n)
+    times = launch_times(
+        lambda: mlp_query.value_and_grad_wgmma_parts(*args, ucfg), 5,
+        tuple(QUERY_WGMMA_LAUNCHES))
+    plain_ms = {
+        "pack": time_ms(lambda: mlp_query.pack_weights_bf16(w, ucfg), 2)[0],
+        "query": time_ms(lambda: mlp_query.value_and_grad_plain(
+            *args, ucfg), 2)[0],
+    }
+    want = query_blocks(mlp_query.value_and_grad_plain(*args, ucfg))
+    got, _ = head_signs({"udf": parts["udf"], "grad": parts["grad"]}, want,
+                        BF16_KERNEL_RTOL)
+    held = {
+        "pack": ({"wb": parts["wb"].float()},
+                 {"wb": mlp_query.pack_weights_bf16(w, ucfg).float()}, 0.0),
+        "query": (got, want, BF16_KERNEL_RTOL),
+    }
+    rows = launch_rows(whole, QUERY_WGMMA_LAUNCHES, times, plain_ms, held,
+                       costs)
+    in_turns(whole, "mma.sync bf16 (csrc/mlp_query.cu)",
+             lambda: mlp_query.value_and_grad_mma_sync(*args, ucfg),
+             lambda: mlp_query.value_and_grad_wgmma_parts(*args, ucfg))
+    old, _ = head_signs(query_blocks(mlp_query.value_and_grad_mma_sync(
+        *args, ucfg)), want, BF16_KERNEL_RTOL)
+    print(f"kernel {whole['name']}: max rel err against the plain version "
           f"{errors(old, want)[1]:.3e} (mma.sync), "
-          f"{errors(new, want)[1]:.3e} (wgmma)", flush=True)
-    check(max(turns["wgmma"]) < min(turns["mma.sync"]),
-          f"the wgmma kernels ({turns['wgmma']} ms) do not beat the mma.sync "
-          f"bf16 instantiation ({turns['mma.sync']} ms)")
+          f"{errors(got, want)[1]:.3e} (wgmma)", flush=True)
     return rows
 
 
@@ -825,8 +920,7 @@ def sliced_row(ucfg, n: int) -> dict:
     f32 = 4
     row = kernel_row(
         "mlp_value_and_grad", mlp_query.value_and_grad_sliced,
-        sliced_plain, query_blocks, (x, w, b), ucfg,
-        "emap_tpu_torch/csrc/mlp_query.cu",
+        sliced_plain, query_blocks, (x, w, b), ucfg, query_source(ucfg),
         "emap_tpu/kernels/mlp_query.py:363",
         f32 * (8 * n + n + 8 * n + w.numel() + b.numel()),
         (mlp_query.query_flops(ucfg) * n, 0))

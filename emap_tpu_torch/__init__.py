@@ -16,11 +16,12 @@ Precision: the conf keys select the JAX package's matmul tiers
 - `model.udf_network.precision` (default "high"): extraction, kernels #1b
   and #3.
 "default" is one bf16 pass (operands rounded to bf16, fp32 products, sums
-and results: mma.sync bf16 in the kernels, a TF32 matmul of bf16-rounded
-operands elsewhere); "high" and "highest" are fp32 (3xTF32 in the kernels,
-fp32 matmuls elsewhere). "highest" on the field also routes the training
-query through plain autograd instead of the kernels, as the JAX package
-routes it through XLA autodiff (`pallas_train = "on"` keeps the kernels).
+and results: wgmma bf16 in #1 and #2, mma.sync bf16 in #3, a TF32 matmul
+of bf16-rounded operands elsewhere); "high" and "highest" are fp32
+(3xTF32 in the kernels, fp32 matmuls elsewhere). "highest" on the field
+also routes the training query through plain autograd instead of the
+kernels, as the JAX package routes it through XLA autodiff
+(`pallas_train = "on"` keeps the kernels).
 The fp32 path throughout: pin `precision = "high"` in udf_network (the
 field follows it) and `sampler_precision = "high"` in udf_renderer.
 Outside those sites torch matmuls run in full float32 with TF32 off

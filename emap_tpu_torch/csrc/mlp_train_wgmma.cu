@@ -58,96 +58,14 @@ using namespace emap;
 
 namespace {
 
-constexpr int WG = 128;                       // threads of a warpgroup
-constexpr int NTW = 3 * WG;                   // producer + 2 consumers
-constexpr int PW = 64;                        // points of a consumer
-constexpr int PB = 2 * PW;                    // points of a block
-constexpr int FMAX = 256;                     // widest layer; tile rows
-constexpr int TILE_BYTES = FMAX * ROW_BYTES;  // one activation tile
-constexpr int STAGES = 4;                     // per-point weight ring
-constexpr int STAGE_BYTES = 2 * BOX_BYTES;    // a 64 x 128 weight chunk
 constexpr int G_STAGES = 4;                   // GEMM factor ring
 constexpr int G_STAGE_BYTES = 4 * BOX_BYTES;  // 128 x 64 of each factor
-constexpr int SIDE = FMAX * PW;               // floats of a side array
 constexpr int KS = 4;                         // GEMM point ranges
 constexpr int MAXG = MAXL * 4;                // GEMM tiles, at most
 constexpr int PP_SMEM = STAGES * STAGE_BYTES + 4 * TILE_BYTES +
                         (2 * 4 * FMAX + 2 * 3 * PW + 2 * 2 * PW) * 4 +
                         2 * STAGES * 8 + 1024;
 constexpr int G_SMEM = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;
-
-// The layout of kernels/mlp_query.py::pack_weights and what this kernel
-// adds to it: the bf16 weight pack (FMAX rows, ldwb columns, layer l's
-// block at column offb_l, in_l columns padded to kpad_l = roundup(in_l,
-// 64)) and the factor rows (frows x n bf16): per layer U_l and Q-hat_l
-// (kpad_l rows each), R_l and Z-hat_l (opad_l = roundup(out_l, 64) rows).
-struct WLayout {
-  Layout lay;
-  int ldwb, frows;
-  int offb[MAXL], kpad[MAXL], opad[MAXL];
-  int rowU[MAXL], rowQ[MAXL], rowR[MAXL], rowZ[MAXL];
-};
-
-inline int ru64(int x) { return (x + 63) / 64 * 64; }
-
-// parse_layout, then what this kernel takes: no layer wider than FMAX, and
-// each layer's input the last one's output, with the encoded x appended at
-// a skip. 0 on success.
-int parse_wgmma(const int* h, float scale, WLayout* wl) {
-  Layout& lay = wl->lay;
-  if (parse_layout(h, scale, &lay) || lay.rmax > FMAX || lay.skip[0])
-    return 1;
-  int col = 0, row = 0;
-  for (int l = 0; l < lay.L; ++l) {
-    if (lay.in[l] > FMAX || lay.out[l] > FMAX) return 1;
-    if (l > 0 && lay.in[l] != lay.out[l - 1] + (lay.skip[l] ? lay.d0 : 0))
-      return 1;
-    wl->kpad[l] = ru64(lay.in[l]);
-    wl->opad[l] = ru64(lay.out[l]);
-    wl->offb[l] = col;
-    col += wl->kpad[l];
-    wl->rowU[l] = row;
-    row += wl->kpad[l];
-    wl->rowQ[l] = row;
-    row += wl->kpad[l];
-    wl->rowR[l] = row;
-    row += wl->opad[l];
-    wl->rowZ[l] = row;
-    row += wl->opad[l];
-  }
-  wl->ldwb = col;
-  wl->frows = row;
-  return 0;
-}
-
-// A chain product of layer l: N outputs a point over a K-deep contraction.
-// Forward and ascend (trans false) take W_l as it is: N = out_l, K =
-// kpad_l. Gradient and descend (trans true) take W_l^T: N = in_l, K =
-// opad_l. N runs in halves of 128, K in chunks of 64.
-__host__ __device__ inline void prod_shape(const WLayout& wl, int l,
-                                           bool trans, int& N, int& K) {
-  N = trans ? wl.lay.in[l] : wl.lay.out[l];
-  K = trans ? wl.opad[l] : wl.kpad[l];
-}
-
-// ---- prologue: W (rmax, ldw) fp32 -> the bf16 pack (FMAX, ldwb) ---------
-
-__global__ void pack_kernel(const float* __restrict__ W,
-                            unsigned short* __restrict__ wb, WLayout wl) {
-  const Layout& lay = wl.lay;
-  const size_t total = (size_t)FMAX * wl.ldwb;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(e / wl.ldwb), c = (int)(e % wl.ldwb);
-    int l = 0;
-    while (l + 1 < lay.L && c >= wl.offb[l + 1]) ++l;
-    const int k = c - wl.offb[l];
-    const float v = r < lay.rmax && k < lay.in[l]
-                        ? W[(size_t)r * lay.ldw + lay.off[l] + k]
-                        : 0.f;
-    wb[e] = bf16_bits(v);
-  }
-}
 
 // ---- per point ------------------------------------------------------------
 
@@ -162,75 +80,6 @@ struct PPArgs {
   unsigned short* F;  // (frows, n) factors
   long long n;
 };
-
-// The producer: every weight chunk of the 30 products, in the consumers'
-// order, two 64 x 64 boxes a stage.
-__device__ void produce_chunks(const CUtensorMap* mw, const WLayout& wl,
-                               unsigned char* ring, uint64_t* full,
-                               uint64_t* empty) {
-  int stage = 0;
-  unsigned phase = 0;
-  auto product = [&](int l, bool trans) {
-    int N, K;
-    prod_shape(wl, l, trans, N, K);
-    for (int h = 0; h * 128 < N; ++h)
-      for (int c = 0; c < K / 64; ++c) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], STAGE_BYTES);
-        unsigned char* dst = ring + stage * STAGE_BYTES;
-        for (int j = 0; j < 2; ++j) {
-          // forward: rows (outputs) 128 h + 64 j, columns 64 c of the
-          // block; transposed: rows 64 c, columns 128 h + 64 j
-          const int x = wl.offb[l] + (trans ? 128 * h + 64 * j : 64 * c);
-          const int y = trans ? 64 * c : 128 * h + 64 * j;
-          tma_load(dst + j * BOX_BYTES, mw, x, y, &full[stage]);
-        }
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-  };
-  const int L = wl.lay.L;
-  for (int l = 0; l < L - 1; ++l) product(l, false);   // forward
-  for (int l = L - 2; l >= 1; --l) product(l, true);   // gradient chain
-  for (int l = 0; l < L - 1; ++l) product(l, false);   // ascend
-  for (int l = L - 2; l >= 1; --l) product(l, true);   // descend
-}
-
-// acc = one 128-wide half of a chain product for the warpgroup's 64
-// points: A the activation tile at a_addr (MN-major), B the ring's chunks
-// (K-major, or MN-major when TB). Each chunk's 64 steps go into `part`,
-// then into acc with a rounded fp32 add.
-template <int TB>
-__device__ __forceinline__ void product_half(float (&acc)[64],
-                                             float (&part)[64],
-                                             uint32_t a_addr, uint32_t ring,
-                                             int K, int& stage,
-                                             unsigned& phase, uint64_t* full,
-                                             uint64_t* empty) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int c = 0; c < K / 64; ++c) {
-    mbar_wait(&full[stage], phase);
-    const uint32_t b = ring + stage * STAGE_BYTES;
-    const uint32_t a = a_addr + c * 64 * ROW_BYTES;
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
-                           TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), s);
-    wg_commit();
-    wg_wait0();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-}
 
 // q-hat_0 = (dPE/dx)^T gbar at feature r of point n (blocked layout).
 __device__ __forceinline__ float pe_jacT_row(const float* pts,
@@ -276,7 +125,7 @@ __global__ void __launch_bounds__(NTW, 1)
   __syncthreads();
   if (threadIdx.x < WG) {
     regs_dec<40>();
-    if (threadIdx.x == 0) produce_chunks(&mw, wl, ring, full, empty);
+    if (threadIdx.x == 0) produce_chunks<2, 1>(&mw, wl, ring, full, empty);
     return;
   }
   regs_inc<232>();
@@ -302,15 +151,13 @@ __global__ void __launch_bounds__(NTW, 1)
 
   auto wg_sync = [&] { named_sync(1 + wg, WG); };
   auto side = [&](int l, int kind, int h, int j) {
-    return reinterpret_cast<float4*>(
-               a.side + ((((size_t)tile_id * (L - 1) + l) * 2 + kind) * SIDE)) +
-           (h * 16 + j) * WG + t;
+    return side_slot(
+        a.side + ((((size_t)tile_id * (L - 1) + l) * 2 + kind) * SIDE), h, j,
+        t);
   };
   // the accumulator element (j, e) of half h: point and feature
-  auto pt = [&](int e) { return 16 * w + (q >> 2) + 8 * (e >> 1); };
-  auto ft = [&](int h, int j, int e) {
-    return 128 * h + 8 * j + 2 * (q & 3) + (e & 1);
-  };
+  auto pt = [&](int e) { return acc_point(t, e); };
+  auto ft = [&](int h, int j, int e) { return acc_feature(t, h, j, e); };
   // nxt may be written once the store that last read it has read it
   auto claim = [&] {
     if (t == 0) bulk_wait_read();
@@ -351,29 +198,14 @@ __global__ void __launch_bounds__(NTW, 1)
   auto gb_row = [&](int r, size_t n) {
     return r < lay.d0p ? pe_jacT_row(a.pts, a.gbar, ld, n, r, lay) : 0.f;
   };
-  // the head's dot w . cur over in_{L-1} features at tier bf16, a point
-  // per pair of threads, four-way sums added in a fixed order; out[p]
+  // the head's dot w . cur over in_{L-1} features at tier bf16; out[p]
   auto head_dot = [&](float* out, float bias) {
-    const int p = t % PW, half = t / PW;
-    float s = 0.f;
-    for (int f = half; f < lay.in[L - 1]; f += 2)
-      s = fmaf(tier_operand<BF16>(whead[f]), ld_bf16(cur, f, p), s);
-    red[(wg * 2 + half) * PW + p] = s;
-    wg_sync();
-    if (t < PW) out[p] = (red[wg * 2 * PW + p] + red[(wg * 2 + 1) * PW + p]) + bias;
-    wg_sync();
+    wg_head_dot(whead, lay.in[L - 1], cur, red + wg * 2 * PW, out, bias, t,
+                1 + wg);
   };
   // the head's transposed product: acc = w[f] v[p] at tier bf16
   auto head_outer = [&](int h, const float* v) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = ft(h, j, e);
-        acc[4 * j + e] = f < lay.in[L - 1] ? tier_operand<BF16>(whead[f]) *
-                                                 tier_operand<BF16>(v[pt(e)])
-                                           : 0.f;
-      }
+    wg_head_outer(acc, whead, lay.in[L - 1], v, h, t);
   };
   auto halves = [](int N) { return (N + 127) / 128; };
 

@@ -1,8 +1,12 @@
-// Hopper's own machinery for the fused field kernels (mlp_train_wgmma.cu):
-// warpgroup matrix products (wgmma) with operands in shared memory, TMA
-// copies between device and shared memory, the mbarriers that report them,
-// and the register split between a producer warpgroup and its consumers.
-// sm_90a only (wgmma and setmaxnreg exist for that target alone).
+// Hopper's own machinery for the fused field kernels (mlp_train_wgmma.cu,
+// mlp_query_wgmma.cu): warpgroup matrix products (wgmma) with operands in
+// shared memory, TMA copies between device and shared memory, the
+// mbarriers that report them, the register split between a producer
+// warpgroup and its consumers, and the chain engine the two kernels share
+// (the bf16 weight pack, the TMA producer of weight chunks, the promoted
+// chain product, the accumulator indexing and the head's one-row
+// products). sm_90a only (wgmma and setmaxnreg exist for that target
+// alone).
 //
 // Shared-memory tiles are 64 x 64 bf16 boxes of 8 KB, 128-byte rows in
 // TMA's 128-byte swizzle: the 16-byte chunk j of row r sits at chunk
@@ -280,4 +284,229 @@ inline int bf16_box_map(CUtensorMap* map, void* base, long long rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS;
 }
 
+// ---- the chain engine ------------------------------------------------------
+//
+// A block is a producer warpgroup (one thread issues the TMA loads) and two
+// consumer warpgroups of PW points each. A consumer walks its points
+// through the chain products of a layer stack: each product's result is
+// written once as bf16 into a 256-row activation tile (a 128-byte row of 64
+// points a feature, read MN-major as wgmma's A), the next product's input.
+// The weights stream as 64 x 128 chunks of the bf16 pack through a ring of
+// STAGES mbarrier stages, in the consumers' order.
+
+constexpr int WG = 128;                       // threads of a warpgroup
+constexpr int NTW = 3 * WG;                   // producer + 2 consumers
+constexpr int PW = 64;                        // points of a consumer
+constexpr int PB = 2 * PW;                    // points of a block
+constexpr int FMAX = 256;                     // widest layer; tile rows
+constexpr int TILE_BYTES = FMAX * ROW_BYTES;  // one activation tile
+constexpr int STAGES = 4;                     // weight ring stages
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;    // a 64 x 128 weight chunk
+constexpr int SIDE = FMAX * PW;               // floats of a side array
+
+// The layout of kernels/mlp_query.py::pack_weights and what the wgmma
+// kernels add to it: the bf16 weight pack (FMAX rows, ldwb columns, layer
+// l's block at column offb_l, in_l columns padded to kpad_l = roundup(in_l,
+// 64)) and the factor rows mlp_train_wgmma.cu stores (frows x n bf16): per
+// layer U_l and Q-hat_l (kpad_l rows each), R_l and Z-hat_l (opad_l =
+// roundup(out_l, 64) rows).
+struct WLayout {
+  Layout lay;
+  int ldwb, frows;
+  int offb[MAXL], kpad[MAXL], opad[MAXL];
+  int rowU[MAXL], rowQ[MAXL], rowR[MAXL], rowZ[MAXL];
+};
+
+inline int ru64(int x) { return (x + 63) / 64 * 64; }
+
+// parse_layout, then what the wgmma kernels take: no layer wider than
+// FMAX, and each layer's input the last one's output, with the encoded x
+// appended at a skip. 0 on success.
+inline int parse_wgmma(const int* h, float scale, WLayout* wl) {
+  Layout& lay = wl->lay;
+  if (parse_layout(h, scale, &lay) || lay.rmax > FMAX || lay.skip[0])
+    return 1;
+  int col = 0, row = 0;
+  for (int l = 0; l < lay.L; ++l) {
+    if (lay.in[l] > FMAX || lay.out[l] > FMAX) return 1;
+    if (l > 0 && lay.in[l] != lay.out[l - 1] + (lay.skip[l] ? lay.d0 : 0))
+      return 1;
+    wl->kpad[l] = ru64(lay.in[l]);
+    wl->opad[l] = ru64(lay.out[l]);
+    wl->offb[l] = col;
+    col += wl->kpad[l];
+    wl->rowU[l] = row;
+    row += wl->kpad[l];
+    wl->rowQ[l] = row;
+    row += wl->kpad[l];
+    wl->rowR[l] = row;
+    row += wl->opad[l];
+    wl->rowZ[l] = row;
+    row += wl->opad[l];
+  }
+  wl->ldwb = col;
+  wl->frows = row;
+  return 0;
+}
+
+// A chain product of layer l: N outputs a point over a K-deep contraction.
+// Forward and ascend (trans false) take W_l as it is: N = out_l, K =
+// kpad_l. Gradient and descend (trans true) take W_l^T: N = in_l, K =
+// opad_l. N runs in halves of 128, K in chunks of 64.
+__host__ __device__ inline void prod_shape(const WLayout& wl, int l,
+                                           bool trans, int& N, int& K) {
+  N = trans ? wl.lay.in[l] : wl.lay.out[l];
+  K = trans ? wl.opad[l] : wl.kpad[l];
+}
+
+// The producer: every weight chunk of the consumers' chain products, in
+// their order, two 64 x 64 boxes a stage. PAIRS times: the forward
+// products of layers 0 .. L-2, then the transposed ones of L-2 down to LOW.
+template <int PAIRS, int LOW>
+__device__ void produce_chunks(const CUtensorMap* mw, const WLayout& wl,
+                               unsigned char* ring, uint64_t* full,
+                               uint64_t* empty) {
+  int stage = 0;
+  unsigned phase = 0;
+  auto product = [&](int l, bool trans) {
+    int N, K;
+    prod_shape(wl, l, trans, N, K);
+    for (int h = 0; h * 128 < N; ++h)
+      for (int c = 0; c < K / 64; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], STAGE_BYTES);
+        unsigned char* dst = ring + stage * STAGE_BYTES;
+        for (int j = 0; j < 2; ++j) {
+          // forward: rows (outputs) 128 h + 64 j, columns 64 c of the
+          // block; transposed: rows 64 c, columns 128 h + 64 j
+          const int x = wl.offb[l] + (trans ? 128 * h + 64 * j : 64 * c);
+          const int y = trans ? 64 * c : 128 * h + 64 * j;
+          tma_load(dst + j * BOX_BYTES, mw, x, y, &full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+  };
+  const int L = wl.lay.L;
+  for (int k = 0; k < PAIRS; ++k) {
+    for (int l = 0; l < L - 1; ++l) product(l, false);
+    for (int l = L - 2; l >= LOW; --l) product(l, true);
+  }
+}
+
+// acc = one 128-wide half of a chain product for the warpgroup's 64
+// points: A the activation tile at a_addr (MN-major), B the ring's chunks
+// (K-major, or MN-major when TB). Each chunk's 64 steps go into `part`,
+// then into acc with a rounded fp32 add.
+template <int TB>
+__device__ __forceinline__ void product_half(float (&acc)[64],
+                                             float (&part)[64],
+                                             uint32_t a_addr, uint32_t ring,
+                                             int K, int& stage,
+                                             unsigned& phase, uint64_t* full,
+                                             uint64_t* empty) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < K / 64; ++c) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t b = ring + stage * STAGE_BYTES;
+    const uint32_t a = a_addr + c * 64 * ROW_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
+                           TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), s);
+    wg_commit();
+    wg_wait0();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// Of a consumer's thread t (warp t / 32, lane q = t % 32), the
+// accumulator element 4 j + e of a 128-wide half h holds this point (row of
+// the m64 tile) and this feature (column of the n128 half): wgmma_m64n128's
+// layout.
+__device__ __forceinline__ int acc_point(int t, int e) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_feature(int t, int h, int j, int e) {
+  return 128 * h + 8 * j + 2 * (t & 3) + (e & 1);
+}
+
+// The float4 of a side array (SIDE fp32 values of one tile and layer) that
+// consumer thread t owns for the accumulator elements 4 j .. 4 j + 3 of
+// half h: written and read back by that thread alone, coalesced.
+__device__ __forceinline__ float4* side_slot(float* arr, int h, int j,
+                                             int t) {
+  return reinterpret_cast<float4*>(arr) + (h * 16 + j) * WG + t;
+}
+
+// The head's dot w . tile over `in` features at tier bf16 for a
+// warpgroup's 64 points, a point per pair of threads, the two partial sums
+// (through red, 2 x PW floats of this warpgroup) added in a fixed order:
+// out[p] = sum + bias. Two barriers `bar` of the warpgroup.
+__device__ __forceinline__ void wg_head_dot(const float* whead, int in,
+                                            const unsigned char* tile,
+                                            float* red, float* out,
+                                            float bias, int t, int bar) {
+  const int p = t % PW, half = t / PW;
+  float s = 0.f;
+  for (int f = half; f < in; f += 2)
+    s = fmaf(tier_operand<BF16>(whead[f]), ld_bf16(tile, f, p), s);
+  red[half * PW + p] = s;
+  named_sync(bar, WG);
+  if (t < PW) out[p] = (red[p] + red[PW + p]) + bias;
+  named_sync(bar, WG);
+}
+
+// The head's transposed product, half h: acc = w[f] v[p] at tier bf16 for
+// the features f < in, 0 past them.
+__device__ __forceinline__ void wg_head_outer(float (&acc)[64],
+                                              const float* whead, int in,
+                                              const float* v, int h, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = acc_feature(t, h, j, e);
+      acc[4 * j + e] = f < in ? tier_operand<BF16>(whead[f]) *
+                                    tier_operand<BF16>(v[acc_point(t, e)])
+                              : 0.f;
+    }
+}
+
 }  // namespace emap
+
+// The prologue, W (rmax, ldw) fp32 -> the bf16 pack (FMAX, ldwb), in the
+// including file's anonymous namespace: a kernel in an anonymous namespace
+// of emap beside the file's own would make nvcc's host stubs ambiguous.
+namespace {
+
+__global__ void pack_kernel(const float* __restrict__ W,
+                            unsigned short* __restrict__ wb,
+                            emap::WLayout wl) {
+  using namespace emap;
+  const Layout& lay = wl.lay;
+  const size_t total = (size_t)FMAX * wl.ldwb;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / wl.ldwb), c = (int)(e % wl.ldwb);
+    int l = 0;
+    while (l + 1 < lay.L && c >= wl.offb[l + 1]) ++l;
+    const int k = c - wl.offb[l];
+    const float v = r < lay.rmax && k < lay.in[l]
+                        ? W[(size_t)r * lay.ldw + lay.off[l] + k]
+                        : 0.f;
+    wb[e] = bf16_bits(v);
+  }
+}
+
+}  // namespace

@@ -9,10 +9,22 @@ value alone for the extraction grid.
   kernels' math, feature-major like the kernels (CPU tests, and the
   references the CUDA kernels are held against on the card).
 * `value_and_grad`: the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches csrc/mlp_query.cu (replaces
-  emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad) or raises.
-  `value_and_grad.launches` counts the kernel launches, and
+  CUDA tensor launches the kernels that replace
+  emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad, or raises: at the
+  bf16 tier csrc/mlp_query_wgmma.cu (wgmma and TMA: a weight-pack prologue
+  and the chain kernel), at the 3xTF32 tier csrc/mlp_query.cu (mma.sync).
+  `value_and_grad.launches` counts one call as one launch, and
   `value_and_grad.tier_launches` the same by kernel tier.
+  `value_and_grad_mma_sync` runs mlp_query.cu at either tier, its bf16
+  instantiation included, for timing beside the wgmma kernel, and
+  `value_and_grad_wgmma_parts` returns what each wgmma launch wrote; the
+  training path calls neither.
+* The wgmma chain engine's Python side (csrc/mlp_wgmma.cuh, shared with
+  #2's kernels in kernels/mlp_train.py): `wgmma_layout` (the bf16 weight
+  pack and #2's factor rows), `pack_weights_bf16` (the prologue's plain
+  version), `query_wgmma_plan` (shared memory, registers and scratch of
+  a launch of #1a's; refuses a net that does not fit) and
+  `query_wgmma_launch_costs` (FLOP and bytes of each launch).
   `value_and_grad_sliced` calls it over slices of at most SLICE_CAP points,
   which bounds the kernel's device scratch on the extraction's large calls.
 * `value`: the same for csrc/mlp_value.cu (replaces
@@ -325,6 +337,135 @@ def check_operands(cfg: UDFConfig, tensors) -> int:
     return n
 
 
+# The wgmma chain engine (csrc/mlp_wgmma.cuh) that #1a at the bf16 tier
+# (csrc/mlp_query_wgmma.cu) and #2 at the bf16 pair
+# (csrc/mlp_train_wgmma.cu) share: the widest layer (the rows of the weight
+# pack and of the activation tiles), points a block (two warpgroups of 64)
+# and the shared memory a block may take on the H100.
+WGMMA_FMAX = 256
+WGMMA_BLOCK_POINTS = 128
+SMEM_LIMIT = 232_448
+# a consumer thread's fp32 accumulators: the running sum and the 64-deep
+# chunk's of one m64n128 half (setmaxnreg: consumers 232, the producer
+# warpgroup 40)
+ENGINE_REGISTERS = {"accumulators": 2 * 64, "consumer": 232, "producer": 40}
+# rows of the query kernel's d udf / d x-tilde block
+# (csrc/mlp_query_wgmma.cu: GIN_ROWS): the encoded input's d0p at most
+QUERY_GIN_ROWS = 64
+
+
+def wgmma_layout(cfg: UDFConfig) -> dict:
+    """The wgmma kernels' layout (csrc/mlp_wgmma.cuh: parse_wgmma): per
+    layer kpad = in_l and opad = out_l rounded up to 64; the bf16 weight
+    pack's column of each layer (offb) and its width (ldwb); the rows of
+    #2's factors U_l, Q-hat_l (kpad_l each), R_l, Z-hat_l (opad_l each) in
+    the (frows, N) factor array."""
+    dims = layer_dims(cfg)
+    kpad = [round_up(i, 64) for i, _ in dims]
+    opad = [round_up(o, 64) for _, o in dims]
+    offb = [sum(kpad[:l]) for l in range(len(dims))]
+    rows, row = {"U": [], "Q": [], "R": [], "Z": []}, 0
+    for k, o in zip(kpad, opad):
+        for name, size in (("U", k), ("Q", k), ("R", o), ("Z", o)):
+            rows[name].append(row)
+            row += size
+    return {"dims": dims, "kpad": kpad, "opad": opad, "offb": offb,
+            "ldwb": sum(kpad), "rows": rows, "frows": row}
+
+
+def check_engine_cfg(cfg: UDFConfig) -> dict:
+    """wgmma_layout(cfg) for a net the wgmma kernels take. Raises
+    ValueError, on every device, for one they do not: check_kernel_cfg's
+    refusals and a layer wider than WGMMA_FMAX."""
+    check_kernel_cfg(cfg)
+    lay = wgmma_layout(cfg)
+    if max(max(i, o) for i, o in lay["dims"]) > WGMMA_FMAX:
+        raise ValueError(f"the wgmma kernels take layers up to {WGMMA_FMAX} "
+                         "wide")
+    return lay
+
+
+def engine_smem() -> dict:
+    """The shared memory every chain-engine block holds, by part (bytes):
+    the weight ring and the two consumers' two activation tiles."""
+    box = 64 * 64 * 2
+    tile = WGMMA_FMAX * 64 * 2  # a warpgroup's activation tile, bf16
+    return {"weight ring (4 stages of a 64 x 128 bf16 chunk)": 4 * 2 * box,
+            "activation tiles (2 warpgroups x 2)": 4 * tile,
+            "mbarriers": 2 * 4 * 8, "alignment": 1024}
+
+
+def pack_weights_bf16(w_pack, cfg: UDFConfig):
+    """The wgmma kernels' weight pack: (WGMMA_FMAX, ldwb) bf16 with layer
+    l's block of w_pack at column offb_l, its in_l columns zero-padded to
+    kpad_l and rows past rmax zero; each value rounded to bf16 as tier_dot
+    rounds it. The plain version of their prologue (pack_kernel)."""
+    lay = wgmma_layout(cfg)
+    out = torch.zeros(WGMMA_FMAX, lay["ldwb"], dtype=torch.bfloat16,
+                      device=w_pack.device)
+    off = 0
+    for (i, _), col in zip(lay["dims"], lay["offb"]):
+        out[: w_pack.shape[0], col: col + i] = w_pack[:, off: off + i].to(
+            torch.bfloat16)
+        off += i
+    return out
+
+
+def query_wgmma_plan(cfg: UDFConfig, n: int) -> dict:
+    """Shared memory, registers and device scratch of one launch of #1a's
+    wgmma kernels at n points, as csrc/mlp_query_wgmma.cu reckons them
+    (emap_mlp_query_wgmma_sizes). Raises ValueError for a net they do not
+    take, on every device: check_engine_cfg's refusals, an encoded input
+    wider than QUERY_GIN_ROWS, or a plan past the block's shared memory."""
+    lay = check_engine_cfg(cfg)
+    dims = lay["dims"]
+    if dims[0][0] > QUERY_GIN_ROWS:
+        raise ValueError(f"the wgmma query kernel takes an encoded input up "
+                         f"to {QUERY_GIN_ROWS} wide, not {dims[0][0]}")
+    parts = dict(engine_smem(), **{
+        "d udf / d x-tilde (2 warpgroups x 64 rows x 64 fp32)":
+            2 * QUERY_GIN_ROWS * 64 * 4,
+        "head sums and d udf / d y0": (2 * 2 * 64 + 2 * 64) * 4,
+    })
+    smem = sum(parts.values())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the wgmma query kernel needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    blocks = -(-n // WGMMA_BLOCK_POINTS)
+    return {
+        "smem": smem, "smem_parts": parts,
+        "registers": dict(ENGINE_REGISTERS), "blocks": blocks,
+        "wb": WGMMA_FMAX * lay["ldwb"],
+        # sigmoid(100 z_l) of each hidden layer: WGMMA_FMAX fp32 a point
+        "side": 2 * blocks * (len(dims) - 1) * WGMMA_FMAX * 64,
+    }
+
+
+def query_wgmma_launch_costs(cfg: UDFConfig, n: int) -> dict:
+    """Each launch of #1a's wgmma kernels at n points: the FLOP of its
+    products (2 * in * out each, unpadded shapes, forward and reverse) and
+    the bytes it must move (each input read once, each output written
+    once), and the sigmoid side arrays' device traffic of the chain kernel
+    beside them: written once and read once, fp32, the live 8-feature
+    groups of each hidden layer (roundup(out_l, 8) a point)."""
+    lay = wgmma_layout(cfg)
+    dims = lay["dims"]
+    shapes = [(i, o) for _, i, o in cfg.layer_shapes()]
+    L, rmax, ldw = len(dims), max(o for _, o in dims), sum(
+        i for i, _ in dims)
+    f32, bf16 = 4, 2
+    w_bytes, wb_bytes = f32 * rmax * ldw, bf16 * WGMMA_FMAX * lay["ldwb"]
+    side = 2 * f32 * n * sum(round_up(o, 8) for _, o in dims[:-1])
+    return {
+        "pack": {"flops": 0, "bytes": w_bytes + wb_bytes},
+        # points (8, n) in; udf (n,) and grad (8, n) out; the bf16 pack,
+        # the head's fp32 row and the biases
+        "query": {"flops": 4 * sum(i * o for i, o in shapes) * n,
+                  "bytes": f32 * 17 * n + wb_bytes + f32 * dims[-1][0]
+                  + f32 * rmax * L, "side_bytes": side},
+    }
+
+
 def _query_lib():
     from emap_tpu_torch.kernels import build
 
@@ -341,14 +482,55 @@ def _query_lib():
     return lib
 
 
-def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """(udf (N,), grad (8, N)) at raw points x_T (8, N), at cfg.precision.
-    CPU tensors take value_and_grad_plain; CUDA tensors launch the
-    kernel."""
-    if not x_T.is_cuda:
-        return value_and_grad_plain(x_T, w_pack, b_pack, cfg)
-    n = check_operands(cfg, (x_T, w_pack, b_pack))
-    tier = kernel_tier(cfg.precision)
+def _query_wgmma_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_query_wgmma")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_query_wgmma_sizes.argtypes = [vp, ctypes.c_longlong, vp]
+        lib.emap_mlp_query_wgmma_sizes.restype = ctypes.c_int
+        lib.emap_mlp_query_wgmma.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, vp]
+        lib.emap_mlp_query_wgmma.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def query_wgmma_sizes(cfg: UDFConfig, n: int) -> dict:
+    """The wgmma query library's own reckoning of a launch at n points
+    (card only; the CPU reckons query_wgmma_plan): wb, side, smem,
+    blocks."""
+    out = (ctypes.c_longlong * 4)()
+    if _query_wgmma_lib().emap_mlp_query_wgmma_sizes(
+            kernel_layout(cfg).ctypes.data, n, out):
+        raise ValueError("layout refused by the wgmma query kernel")
+    return dict(zip(("wb", "side", "smem", "blocks"), list(out)))
+
+
+def _launch_wgmma(x_T, w_pack, b_pack, cfg, n):
+    """(udf, grad, scratch): the wgmma launches and the scratch they
+    wrote."""
+    lib = _query_wgmma_lib()
+    plan = query_wgmma_plan(cfg, n)
+    dev = x_T.device
+    udf = torch.empty(n, device=dev, dtype=torch.float32)
+    grad = torch.empty(8, n, device=dev, dtype=torch.float32)
+    wb = torch.empty(plan["wb"], device=dev, dtype=torch.bfloat16)
+    side = torch.empty(plan["side"], device=dev, dtype=torch.float32)
+    err = lib.emap_mlp_query_wgmma(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
+        grad.data_ptr(), wb.data_ptr(), side.data_ptr(), n,
+        kernel_layout(cfg).ctypes.data, float(cfg.scale), 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mlp_query_wgmma kernel launch failed: CUDA "
+                           f"error {err}")
+    return udf, grad, {"wb": wb.view(WGMMA_FMAX, -1)}
+
+
+def _launch_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
     lib = _query_lib()
     layout = kernel_layout(cfg)
     rows = lib.emap_mlp_value_and_grad_scratch_rows(layout.ctypes.data)
@@ -365,6 +547,21 @@ def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
         float(cfg.scale), tier, stream)
     if err:
         raise RuntimeError(f"mlp_query kernel launch failed: CUDA error {err}")
+    return udf, grad
+
+
+def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """(udf (N,), grad (8, N)) at raw points x_T (8, N), at cfg.precision.
+    CPU tensors take value_and_grad_plain; CUDA tensors launch the kernels:
+    the wgmma ones at the bf16 tier, mlp_query.cu's at 3xTF32."""
+    if not x_T.is_cuda:
+        return value_and_grad_plain(x_T, w_pack, b_pack, cfg)
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    tier = kernel_tier(cfg.precision)
+    if tier == 1:
+        udf, grad = _launch_wgmma(x_T, w_pack, b_pack, cfg, n)[:2]
+    else:
+        udf, grad = _launch_mma_sync(x_T, w_pack, b_pack, cfg, n, tier)
     value_and_grad.launches += 1
     value_and_grad.tier_launches[TIER_NAMES[tier]] += 1
     return udf, grad
@@ -372,6 +569,27 @@ def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
 
 value_and_grad.launches = 0
 value_and_grad.tier_launches = dict.fromkeys(TIER_NAMES, 0)
+
+
+def value_and_grad_wgmma_parts(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """One launch of #1a's wgmma kernels on CUDA tensors at cfg (the bf16
+    tier) with what each launch wrote: udf, grad and wb (the prologue's
+    bf16 pack), to hold each launch against its plain version. Counted in
+    no launch count; the training path never calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    if kernel_tier(cfg.precision) != 1:
+        raise ValueError("the wgmma query kernels run the bf16 tier only")
+    udf, grad, scratch = _launch_wgmma(x_T, w_pack, b_pack, cfg, n)
+    return dict(scratch, udf=udf, grad=grad)
+
+
+def value_and_grad_mma_sync(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """csrc/mlp_query.cu at cfg's tier, its bf16 instantiation included, on
+    CUDA tensors: the mma.sync design timed beside the wgmma kernels.
+    Counted in no launch count; the training path never calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    return _launch_mma_sync(x_T, w_pack, b_pack, cfg, n,
+                            kernel_tier(cfg.precision))
 
 
 def value_and_grad_sliced(x_T, w_pack, b_pack, cfg: UDFConfig,
@@ -480,6 +698,8 @@ __all__ = [
     "tier_dot", "fold_weights", "pack_weights",
     "unpack_weights", "pe_perm", "blocked_pe_columns", "layer_dims",
     "kernel_layout", "value_and_grad", "value_and_grad_plain",
-    "value_and_grad_sliced", "value", "value_plain", "query_value",
-    "query_value_and_grad", "query_flops", "value_flops",
+    "value_and_grad_sliced", "value_and_grad_mma_sync",
+    "value_and_grad_wgmma_parts", "value", "value_plain", "query_value",
+    "query_value_and_grad", "query_flops", "value_flops", "wgmma_layout",
+    "pack_weights_bf16", "query_wgmma_plan", "query_wgmma_launch_costs",
 ]

@@ -32,10 +32,11 @@ hand-derived second-order backward (port of emap_tpu/kernels/mlp_train.py).
   `train_bwd_mma_sync` runs mlp_train.cu at any pair, its bf16 one
   included, for timing beside the wgmma kernels; the training path never
   calls it.
-* The wgmma kernels' Python side: `wgmma_layout` (their weight pack and
-  factor rows), `wgmma_plan` (shared memory, registers and scratch of a
-  launch; refuses a net that does not fit), `pack_weights_bf16` (the
-  prologue's plain version), `train_bwd_factors` and `wbar_from_factors`
+* The wgmma kernels' Python side: `wgmma_layout` and `pack_weights_bf16`
+  (their weight pack and factor rows, and the prologue's plain version;
+  kernels/mlp_query.py, shared with #1a's wgmma kernel), `wgmma_plan`
+  (shared memory, registers and scratch of a launch; refuses a net that
+  does not fit), `train_bwd_factors` and `wbar_from_factors`
   (the per-point kernel's and the GEMM's plain versions: factors stored as
   bf16 lose nothing at the bf16 adjoint tier) and `train_bwd_launch_costs`
   (FLOP and bytes of each launch).
@@ -62,7 +63,10 @@ from emap_tpu_torch.kernels import mlp_query
 from emap_tpu_torch.kernels.mlp_query import (
     INV_SQRT2,
     POINT_TILE,
+    SMEM_LIMIT,
     TIER_NAMES,
+    WGMMA_BLOCK_POINTS,
+    WGMMA_FMAX,
     check_operands,
     dy_of_y0,
     encode_fused,
@@ -70,9 +74,11 @@ from emap_tpu_torch.kernels.mlp_query import (
     kernel_tier,
     layer_dims,
     pack_weights,
+    pack_weights_bf16,
     pe_jacT_fused,
     tier_dot,
     unpack_weights,
+    wgmma_layout,
 )
 
 
@@ -192,32 +198,10 @@ def train_bwd_plain(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):
     return _train_bwd_math(x, w_pack, b_pack, ubar, gb, cfg)
 
 
-# csrc/mlp_train_wgmma.cu's fixed shapes: the widest layer (the rows of its
-# weight pack and activation tiles), the GEMM's point ranges, points a
-# per-point block (two warpgroups of 64), and a block's shared memory.
-WGMMA_FMAX = 256
+# csrc/mlp_train_wgmma.cu's GEMM point ranges; its widest layer, points a
+# per-point block and a block's shared memory are the chain engine's
+# (kernels/mlp_query.py).
 WGMMA_KS = 4
-WGMMA_BLOCK_POINTS = 128
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may take (H100)
-
-
-def wgmma_layout(cfg: UDFConfig) -> dict:
-    """The wgmma kernels' layout (csrc/mlp_train_wgmma.cu: parse_wgmma):
-    per layer kpad = in_l and opad = out_l rounded up to 64; the bf16
-    weight pack's column of each layer (offb) and its width (ldwb); the
-    rows of the factors U_l, Q-hat_l (kpad_l each), R_l, Z-hat_l (opad_l
-    each) in the (frows, N) factor array."""
-    dims = layer_dims(cfg)
-    kpad = [mlp_query.round_up(i, 64) for i, _ in dims]
-    opad = [mlp_query.round_up(o, 64) for _, o in dims]
-    offb = [sum(kpad[:l]) for l in range(len(dims))]
-    rows, row = {"U": [], "Q": [], "R": [], "Z": []}, 0
-    for k, o in zip(kpad, opad):
-        for name, size in (("U", k), ("Q", k), ("R", o), ("Z", o)):
-            rows[name].append(row)
-            row += size
-    return {"dims": dims, "kpad": kpad, "opad": opad, "offb": offb,
-            "ldwb": sum(kpad), "rows": rows, "frows": row}
 
 
 def wgmma_plan(cfg: UDFConfig, n: int) -> dict:
@@ -226,22 +210,13 @@ def wgmma_plan(cfg: UDFConfig, n: int) -> dict:
     (emap_mlp_train_wgmma_sizes). Raises ValueError for a net they do not
     take, on every device: a layer wider than WGMMA_FMAX, or a plan past
     the block's shared memory."""
-    mlp_query.check_kernel_cfg(cfg)
-    lay = wgmma_layout(cfg)
+    lay = mlp_query.check_engine_cfg(cfg)
     dims = lay["dims"]
-    if max(max(i, o) for i, o in dims) > WGMMA_FMAX:
-        raise ValueError(f"the wgmma kernels take layers up to {WGMMA_FMAX} "
-                         "wide")
     box = 64 * 64 * 2
-    tile = WGMMA_FMAX * 64 * 2  # a warpgroup's activation tile, bf16
-    per_point = {
-        "weight ring (4 stages of a 64 x 128 bf16 chunk)": 4 * 2 * box,
-        "activation tiles (2 warpgroups x 2)": 4 * tile,
+    per_point = dict(mlp_query.engine_smem(), **{
         "bias sums (8 warps x 256 fp32)": 8 * WGMMA_FMAX * 4,
         "head vectors and sums": (2 * 3 * 64 + 2 * 2 * 64) * 4,
-        "mbarriers": 2 * 4 * 8,
-        "alignment": 1024,
-    }
+    })
     gemm = {"factor ring (4 stages of 128 x 64 bf16 of each factor)":
             4 * 4 * box, "mbarriers": 2 * 4 * 8, "alignment": 1024}
     smem = {"per_point": sum(per_point.values()), "gemm": sum(gemm.values())}
@@ -255,33 +230,13 @@ def wgmma_plan(cfg: UDFConfig, n: int) -> dict:
     ldw = sum(i for i, _ in dims)
     return {
         "smem": smem, "per_point_smem": per_point, "gemm_smem": gemm,
-        # a consumer thread's fp32 accumulators: the running sum and the
-        # 64-deep chunk's of one m64n128 half (setmaxnreg: consumers 232,
-        # the producer warpgroup 40)
-        "registers": {"accumulators": 2 * 64, "consumer": 232,
-                      "producer": 40},
+        "registers": dict(mlp_query.ENGINE_REGISTERS),
         "blocks": blocks,
         "wb": WGMMA_FMAX * lay["ldwb"],
         "frows": lay["frows"],
         "side": 2 * blocks * (L - 1) * 2 * WGMMA_FMAX * 64,
         "partials": WGMMA_KS * rmax * ldw + blocks * rmax * L,
     }
-
-
-def pack_weights_bf16(w_pack, cfg: UDFConfig):
-    """The wgmma kernels' weight pack: (WGMMA_FMAX, ldwb) bf16 with layer
-    l's block of w_pack at column offb_l, its in_l columns zero-padded to
-    kpad_l and rows past rmax zero; each value rounded to bf16 as tier_dot
-    rounds it. The plain version of their prologue (pack_kernel)."""
-    lay = wgmma_layout(cfg)
-    out = torch.zeros(WGMMA_FMAX, lay["ldwb"], dtype=torch.bfloat16,
-                      device=w_pack.device)
-    off = 0
-    for (i, _), col in zip(lay["dims"], lay["offb"]):
-        out[: w_pack.shape[0], col: col + i] = w_pack[:, off: off + i].to(
-            torch.bfloat16)
-        off += i
-    return out
 
 
 def train_bwd_factors(x_T, w_pack, b_pack, ubar, gbar, cfg: UDFConfig):

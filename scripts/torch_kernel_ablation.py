@@ -21,9 +21,20 @@ tier's kernels in the same libraries building. The wgmma_* ablations
 patch #2's wgmma kernels (mlp_train_wgmma.cu) and are timed at the
 (bf16, bf16) pair those serve, with their per-point and GEMM kernels from
 torch.profiler and the max and mean error against the plain version at
-that pair. Ablations that drop work
-give wrong results by design: they measure what that work costs. The card's name and power limit lead the output. No CPU
-fallback: without CUDA it fails.
+that pair. The query_wgmma_* ablations patch #1a's wgmma kernel
+(mlp_query_wgmma.cu) and are timed at the bf16 tier it serves, with its
+two launches from torch.profiler and the max and mean error against the
+plain version at that tier. Ablations that drop work give wrong results by
+design: they measure what that work costs. The card's name and power
+limit lead the output. No CPU fallback: without CUDA it fails.
+
+    python3 scripts/torch_kernel_ablation.py as_built --tree parent=DIR
+
+also builds the CUDA sources of another checkout of the repo at DIR (its
+emap_tpu_torch/csrc, unpatched) as a variant named `parent`, timed in the
+same rounds through this checkout's wrappers on the libraries both
+checkouts have. Every line of a variant says whether its outputs equal
+as_built's bit for bit (as_built first among the names).
 """
 
 from __future__ import annotations
@@ -377,6 +388,11 @@ WGMMA_SIDE_READS = (
     ("      const float4 sv = *side(l - 1, 0, h, j), hv = *side(l - 1, 1, h, "
      "j);", "      const float4 sv = make_float4(0.5f, 0.5f, 0.5f, 0.5f), "
      "hv = sv;"))
+QUERY_EPILOGUE_MATH = (
+    "          sig_softplus100_approx(acc[4 * j + e] + a.B[f * L + l], sig,\n"
+    "                                 act);")
+NO_PROMOTION_ADD = ("    for (int i = 0; i < 64; ++i) acc[i] += part[i];\n",
+                    "    for (int i = 0; i < 64; ++i) part[i] = 0.f;\n")
 WGMMA_SIDE_WRITES = tuple(
     (f"      {lhs} = make_float4({v}[0], {v}[1], {v}[2], {v}[3]);",
      f"      if ({v}[0] == 12345.f) {lhs} = make_float4({v}[0], {v}[1], "
@@ -417,17 +433,49 @@ ABLATIONS.update({
         "        tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);",
         "        if (row < 0)\n"
         "          tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);")]},
-    "wgmma_no_promotion": {"mlp_train_wgmma.cu": [
-        ("""      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
+    # the chain products' (mlp_wgmma.cuh, shared with #1a's wgmma kernel)
+    # and the GEMM's
+    "wgmma_no_promotion": {
+        "mlp_wgmma.cuh": [
+            ("""      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
                            TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), s);""",
-         """      wgmma_m64n128<1, TB>(acc, desc_mnmajor(a, s),
+             """      wgmma_m64n128<1, TB>(acc, desc_mnmajor(a, s),
                            TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), 1);"""),
-        ("""      wgmma_m64n128<0, 0>(part, desc_kmajor(b + cw * BOX_BYTES, s),
+            NO_PROMOTION_ADD],
+        "mlp_train_wgmma.cu": [
+            ("""      wgmma_m64n128<0, 0>(part, desc_kmajor(b + cw * BOX_BYTES, s),
                           desc_kmajor(b + 2 * BOX_BYTES, s), s);""",
-         """      wgmma_m64n128<0, 0>(acc, desc_kmajor(b + cw * BOX_BYTES, s),
+             """      wgmma_m64n128<0, 0>(acc, desc_kmajor(b + cw * BOX_BYTES, s),
                           desc_kmajor(b + 2 * BOX_BYTES, s), 1);"""),
-        ("    for (int i = 0; i < 64; ++i) acc[i] += part[i];\n",
-         "    for (int i = 0; i < 64; ++i) part[i] = 0.f;\n")]},
+            NO_PROMOTION_ADD]},
+})
+# #1a's wgmma kernel (mlp_query_wgmma.cu), timed at the bf16 tier it
+# serves: the sigmoid side arrays' traffic taken out (no store; constant
+# sigmoids read: wrong results, the traffic's cost), their L2 prefetch
+# taken out, the forward epilogue's softplus and sigmoid replaced by a
+# scale and a constant (wrong results: what the transcendental math
+# costs), and that math in its exact fp32 forms.
+ABLATIONS.update({
+    "query_wgmma_no_side": {"mlp_query_wgmma.cu": [
+        ("      if (128 * h + 8 * j < M)\n        *side(l, h, j) = ",
+         "      if (128 * h + 8 * j < M && sg[0] == 12345.f)\n"
+         "        *side(l, h, j) = "),
+        ("      if (128 * h + 8 * j < c) sv = *side(l - 1, h, j);",
+         "      if (128 * h + 8 * j < c) sv = make_float4(0.5f, 0.5f, 0.5f, "
+         "0.5f);")]},
+    "query_wgmma_no_prefetch": {"mlp_query_wgmma.cu": [
+        ("    prefetch(l - 1);\n", "")]},
+    "query_wgmma_no_epilogue_math": {"mlp_query_wgmma.cu": [(
+        QUERY_EPILOGUE_MATH,
+        "          sig = 0.5f;\n"
+        "          act = (acc[4 * j + e] + a.B[f * L + l]) * 0.01f;")]},
+    # the epilogue's softplus and sigmoid from the exact fp32 forms
+    # (sig_softplus100: expf, __frcp_rn, log1pf) in place of the special
+    # function unit's approximations; and log1pf alone exact
+    "query_wgmma_exact_math": {"mlp_query_wgmma.cu": [(
+        QUERY_EPILOGUE_MATH, QUERY_EPILOGUE_MATH.replace("_approx(", "("))]},
+    "query_wgmma_exact_log1p": {"mlp_query_wgmma.cu": [(
+        "          : lg * 0.69314718f;", "          : log1pf(e);")]},
 })
 # The libraries an ablation is timed on where not every library its
 # patches reach: p128's tile does not fit the training kernels' shared
@@ -454,11 +502,15 @@ def patched_tree(root: str, name: str) -> str:
     return dst
 
 
-def libraries(name: str) -> tuple:
+def libraries(name: str, tree: str = "") -> tuple:
     """The libraries an ablation's patches reach (every one for as_built
-    and for a patch of a shared header)."""
+    and for a patch of a shared header), or those of SOURCES a checkout's
+    tree holds."""
     from emap_tpu_torch.kernels import build
 
+    if name not in ABLATIONS:
+        return tuple(lib for lib in build.SOURCES
+                     if os.path.exists(os.path.join(tree, f"{lib}.cu")))
     if name in TIMED:
         return TIMED[name]
     files = ABLATIONS[name]
@@ -467,7 +519,23 @@ def libraries(name: str) -> tuple:
     return tuple(lib for lib in build.SOURCES if f"{lib}.cu" in files)
 
 
-def main(names) -> int:
+def parse_args(argv) -> tuple:
+    """(ablation names, {variant name: csrc directory of a checkout})."""
+    names, trees = [], {}
+    it = iter(argv)
+    for arg in it:
+        if arg == "--tree":
+            name, _, root = next(it).partition("=")
+            trees[name] = os.path.join(os.path.abspath(root), "emap_tpu_torch",
+                                       "csrc")
+            if not os.path.isdir(trees[name]):
+                raise SystemExit(f"torch_kernel_ablation: no {trees[name]}")
+        else:
+            names.append(arg)
+    return names or ([] if trees else list(ABLATIONS)), trees
+
+
+def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -504,6 +572,8 @@ def main(names) -> int:
     bwd_bf = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, bf16),
                                cfg)
     ug_p = tq.value_plain(xg, w, b, cfg)
+    q_bf = tq.value_and_grad_plain(x, w, b, bf16)
+    names, other = parse_args(argv)
 
     def rel(a, c):
         return float((a - c).abs().max() / (c.abs().max() + 1e-30))
@@ -520,51 +590,87 @@ def main(names) -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def launch_ms(fn) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            m = re.search(r"(\w+_kernel)[<(]", e.key)
+            if m:
+                parts[m.group(1)] = getattr(e, "device_time_total",
+                                            0.0) / 1e3
+        return parts
+
+    first = {}  # (variant, kernel): the outputs of its first round
+
+    def same(name, kernel, out) -> str:
+        """Whether `out` equals as_built's, bit for bit."""
+        first.setdefault((name, kernel), out)
+        want = first.get(("as_built", kernel))
+        if want is None or name == "as_built":
+            return ""
+        return (f", bit-identical to as_built: "
+                f"{all(torch.equal(a, c) for a, c in zip(out, want))}")
+
     with tempfile.TemporaryDirectory() as root:
         trees = {name: patched_tree(root, name) for name in names}
+        trees.update(other)
         for name, tree in trees.items():
             build.CSRC = tree
-            build.build_all(libraries(name))
-            for lib in libraries(name):
+            build.build_all(libraries(name, tree))
+            for lib in libraries(name, tree):
                 for line in build.build_log(lib).splitlines():
                     if "registers" in line or "spill" in line:
                         print(f"ptxas {name} {lib}: {line.strip()}",
                               flush=True)
         for rnd in range(2):
-            for name, tree in trees.items():
+            # in turns: the second round runs the variants in reverse
+            order = list(trees.items())
+            for name, tree in order if rnd == 0 else order[::-1]:
                 build.CSRC = tree
                 build._loaded.clear()
-                libs = libraries(name)
+                libs = libraries(name, tree)
                 if "mlp_query" in libs:
                     u, gr = tq.value_and_grad(x, w, b, cfg)
                     fwd_ms = ms(lambda: tq.value_and_grad(x, w, b, cfg))
                     print(f"round {rnd} {name:20s} #1a {fwd_ms:8.3f} ms  max "
                           f"rel err udf {rel(u, u_p):.2e} grad "
-                          f"{rel(gr, g_p):.2e}", flush=True)
+                          f"{rel(gr, g_p):.2e}{same(name, '1a', (u, gr))}",
+                          flush=True)
+                if "mlp_query_wgmma" in libs:
+                    out = tq.value_and_grad(x, w, b, bf16)
+                    worst = max(rel(a, c) for a, c in zip(out, q_bf))
+                    mean = max(float((a - c).abs().mean()
+                                     / (c.abs().max() + 1e-30))
+                               for a, c in zip(out, q_bf))
+                    fwd_ms = ms(lambda: tq.value_and_grad(x, w, b, bf16))
+                    parts = launch_ms(lambda: tq.value_and_grad(x, w, b,
+                                                                bf16))
+                    print(f"round {rnd} {name:20s} #1a bf16 wgmma "
+                          f"{fwd_ms:8.3f} ms (pack "
+                          f"{parts.get('pack_kernel', 0.0):.3f}, query "
+                          f"{parts.get('query_kernel', 0.0):.3f})  max rel "
+                          f"err udf/grad {worst:.2e}, mean {mean:.2e}"
+                          f"{same(name, '1a bf16', out)}", flush=True)
                 if "mlp_train" in libs:
-                    bwd = tq.unpack_weights(
-                        *tt.train_bwd(x, w, b, ub, gb, cfg), cfg)
+                    out = tt.train_bwd(x, w, b, ub, gb, cfg)
+                    bwd = tq.unpack_weights(*out, cfg)
                     worst = max(rel(a, c) for got, want in zip(bwd, bwd_p)
                                 for a, c in zip(got, want))
                     bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, cfg))
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        tt.train_bwd(x, w, b, ub, gb, cfg)
-                        torch.cuda.synchronize()
-                    parts = {}
-                    for e in prof.key_averages():
-                        m = re.search(r"(\w+_kernel)[<(]", e.key)
-                        if m:
-                            parts[m.group(1)] = getattr(
-                                e, "device_time_total", 0.0) / 1e3
+                    parts = launch_ms(lambda: tt.train_bwd(x, w, b, ub, gb,
+                                                           cfg))
                     print(f"round {rnd} {name:20s} #2  {bwd_ms:8.3f} ms "
                           f"(per_point "
                           f"{parts.get('per_point_kernel', 0.0):.3f}, "
                           f"wbar_partials "
                           f"{parts.get('wbar_partials_kernel', 0.0):.3f})  "
-                          f"max rel err wbar {worst:.2e}", flush=True)
+                          f"max rel err wbar {worst:.2e}"
+                          f"{same(name, '2', out)}", flush=True)
                 if "mlp_train_wgmma" in libs:
-                    bwd = tq.unpack_weights(
-                        *tt.train_bwd(x, w, b, ub, gb, bf16), cfg)
+                    out = tt.train_bwd(x, w, b, ub, gb, bf16)
+                    bwd = tq.unpack_weights(*out, cfg)
                     worst = max(rel(a, c) for got, want in zip(bwd, bwd_bf)
                                 for a, c in zip(got, want))
                     mean = max(float((a - c).abs().mean()
@@ -572,30 +678,24 @@ def main(names) -> int:
                                for got, want in zip(bwd, bwd_bf)
                                for a, c in zip(got, want))
                     bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, bf16))
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        tt.train_bwd(x, w, b, ub, gb, bf16)
-                        torch.cuda.synchronize()
-                    parts = {}
-                    for e in prof.key_averages():
-                        m = re.search(r"(\w+_kernel)[<(]", e.key)
-                        if m:
-                            parts[m.group(1)] = getattr(
-                                e, "device_time_total", 0.0) / 1e3
+                    parts = launch_ms(lambda: tt.train_bwd(x, w, b, ub, gb,
+                                                           bf16))
                     print(f"round {rnd} {name:20s} #2 bf16 wgmma {bwd_ms:8.3f} "
                           f"ms (per_point "
                           f"{parts.get('per_point_kernel', 0.0):.3f}, wbar "
                           f"{parts.get('wbar_kernel', 0.0):.3f})  max rel "
-                          f"err wbar {worst:.2e}, mean {mean:.2e}",
-                          flush=True)
+                          f"err wbar {worst:.2e}, mean {mean:.2e}"
+                          f"{same(name, '2 bf16', out)}", flush=True)
                 if "mlp_value" in libs:
                     ug = tq.value(xg, w, b, cfg)
-                    same = torch.equal(ug, tq.value(xg, w, b, cfg))
+                    again = torch.equal(ug, tq.value(xg, w, b, cfg))
                     val_ms = ms(lambda: tq.value(xg, w, b, cfg))
                     print(f"round {rnd} {name:20s} #3  {val_ms:8.3f} ms  max "
                           f"rel err udf {rel(ug, ug_p):.2e}, two launches "
-                          f"bit-identical: {same}", flush=True)
+                          f"bit-identical: {again}{same(name, '3', (ug,))}",
+                          flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or list(ABLATIONS)))
+    sys.exit(main(sys.argv[1:]))

@@ -327,10 +327,10 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
-                                 "mlp_train_wgmma"])
+                                 "mlp_train_wgmma", "mlp_query_wgmma"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     """Each kernel library's SASS holds tensor-core instructions: HMMA
-    (mma.sync), or HGMMA (wgmma) in the wgmma library."""
+    (mma.sync), or HGMMA (wgmma) in the wgmma libraries."""
     import shutil
     import subprocess
 
@@ -340,7 +340,7 @@ def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", build.lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
-    assert sass.count("HGMMA" if lib == "mlp_train_wgmma" else "HMMA") > 0
+    assert sass.count("HGMMA" if lib.endswith("_wgmma") else "HMMA") > 0
 
 
 # The wgmma kernels (#2 at the bf16 pair) against train_bwd_plain at that
@@ -424,6 +424,131 @@ def test_cuda_wgmma_pack_and_plan(cuda, name):
                      "per_point_smem": plan["smem"]["per_point"],
                      "gemm_smem": plan["smem"]["gemm"],
                      "blocks": plan["blocks"]}
+
+
+def _query_held(got, want, want32):
+    """#1a at the bf16 tier against value_and_grad_plain at that tier:
+    udf and grad within WGMMA_RTOL of each block's largest, the gradient up
+    to the abs head's sign at points whose udf lies within that bound of 0
+    (there y0 is within the tier's roundoff of the surface, where d|y0|/dy0
+    turns over), and by mean error at least BF16_SEPARATION times nearer
+    than the fp32 plain version."""
+    (u, g), (uw, gw), (u32, g32) = got, want, want32
+    flip = (g + gw).abs().amax(0) < (g - gw).abs().amax(0)
+    assert not bool((uw[flip] > WGMMA_RTOL * uw.max()).any())
+    g = torch.where(flip, -g, g)
+    for a, c in ((u, uw), (g, gw)):
+        assert bool(torch.isfinite(a).all())
+        assert max_rel(a, c) < WGMMA_RTOL
+    assert BF16_SEPARATION * max(mean_rel(u, uw), mean_rel(g, gw)) < max(
+        mean_rel(u, u32), mean_rel(g, g32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [116_736, 4160])
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_wgmma_query_matches_plain(cuda, name, n):
+    """value_and_grad at the bf16 tier launches #1a's wgmma kernels
+    (csrc/mlp_query_wgmma.cu): against value_and_grad_plain at that tier
+    (_query_held), at the training step's N = 116,736 points and at
+    n = 4160, 32.5 blocks of 128 points (the last block's second warpgroup
+    holds no point and writes nothing); ABC width (d0p 64), Replica's (d0p
+    40) and the toy nets; two launches bit-identical; one launch counted a
+    call under "bf16"; rows 3-7 of grad zero."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, _, _ = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value_and_grad.tier_launches)
+    runs = [tq.value_and_grad(x, w, b, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tq.value_and_grad.tier_launches == dict(
+        before, bf16=before["bf16"] + 2)
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    assert runs[0][0].shape == (n,) and runs[0][1].shape == (8, n)
+    assert not bool(runs[0][1][3:].any())
+    _query_held(runs[0], tq.value_and_grad_plain(x, w, b, cfg),
+                tq.value_and_grad_plain(
+                    x, w, b, dataclasses.replace(cfg, precision="high")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_wgmma_query_through_slices(cuda, name):
+    """value_and_grad_sliced at the bf16 tier over slices of 4,096 points
+    (10,176 points: slices of 4,096, 4,096 and 1,984, the last a ragged
+    block): one launch a slice, the concatenation bit-identical to one
+    launch over all points, and held against the plain version."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, _, _ = points(10_176, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = tq.value_and_grad.tier_launches["bf16"]
+    sliced = tq.value_and_grad_sliced(x, w, b, cfg, cap=4096)
+    assert tq.value_and_grad.tier_launches["bf16"] == before + 3
+    whole = tq.value_and_grad(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(sliced, whole))
+    _query_held(sliced, tq.value_and_grad_plain(x, w, b, cfg),
+                tq.value_and_grad_plain(
+                    x, w, b, dataclasses.replace(cfg, precision="high")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_wgmma_query_in_a_cuda_graph(cuda, name):
+    """value_and_grad at the bf16 tier captured in a CUDA graph (its
+    tensor map a __grid_constant__ parameter, its scratch from the graph's
+    pool): the capture counts one launch, and replays on new points written
+    into the captured input equal eager launches bit for bit."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, _, _ = points(8192, cuda)
+    x2, _, _ = points(8192, cuda, seed=5)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    want = [tq.value_and_grad(p, w, b, cfg) for p in (x, x2)]
+    static = x.clone()
+    tq.value_and_grad(static, w, b, cfg)  # warm-up: the library loaded
+    torch.cuda.synchronize()
+    before = tq.value_and_grad.tier_launches["bf16"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.value_and_grad(static, w, b, cfg)
+    assert tq.value_and_grad.tier_launches["bf16"] == before + 1
+    for p, (u, g) in zip((x, x2), want):
+        static.copy_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], u) and torch.equal(out[1], g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_wgmma_query_pack_plan_and_twin(cuda, name):
+    """#1a's wgmma prologue equals pack_weights_bf16 bit for bit; the
+    library reckons a launch's scratch and shared memory as
+    query_wgmma_plan; the parts' outputs are the wrapper's; and the
+    mma.sync bf16 twin (csrc/mlp_query.cu, timed beside it) still matches
+    the plain version. Neither counts a launch."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, _, _ = points(4160, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value_and_grad.tier_launches)
+    parts = tq.value_and_grad_wgmma_parts(x, w, b, cfg)
+    twin = tq.value_and_grad_mma_sync(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert tq.value_and_grad.tier_launches == before
+    assert torch.equal(parts["wb"], tq.pack_weights_bf16(w, cfg))
+    u, g = tq.value_and_grad(x, w, b, cfg)
+    assert torch.equal(parts["udf"], u) and torch.equal(parts["grad"], g)
+    plan = tq.query_wgmma_plan(cfg, 4160)
+    assert tq.query_wgmma_sizes(cfg, 4160) == {
+        "wb": plan["wb"], "side": plan["side"], "smem": plan["smem"],
+        "blocks": plan["blocks"]}
+    _query_held(twin, tq.value_and_grad_plain(x, w, b, cfg),
+                tq.value_and_grad_plain(
+                    x, w, b, dataclasses.replace(cfg, precision="high")))
 
 
 def _train_conf(tmp_path, upsampling_type):
