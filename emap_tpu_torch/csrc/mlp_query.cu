@@ -1,14 +1,9 @@
-// Fused UDF field query: value and spatial gradient, on the tensor cores.
-//
-// Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad in both
-// its uses: with fuse_pe=True, f32_residuals=True as the forward of the
-// training query (emap_tpu/kernels/mlp_train.py::_train_query), and as the
-// extraction query of pallas_udf_value_and_grad (PE outside, bf16 residuals
-// on the "high" and "default" tiers there: only to fit VMEM; the residuals
-// here are fp32 at both tiers).
-// The extraction's calls reach 3,276,800 points, so the wrapper
-// (kernels/mlp_query.py::value_and_grad_sliced) launches over slices of at
-// most SLICE_CAP points and the scratch stays bounded.
+// Fused UDF field query: value and spatial gradient, on the tensor cores
+// with mma.sync: the first design of emap_tpu/kernels/mlp_query.py::
+// _pallas_value_and_grad (fuse_pe=True, fp32 sigmoid residuals), at both
+// tiers. No path runs it: mlp_query_wgmma.cu (bf16) and mlp_query_tf32.cu
+// (3xTF32) replaced it; kernels/mlp_query.py::value_and_grad_mma_sync
+// times it beside them.
 //
 // Computes, per point: the in-kernel PE encode, 9 linears with
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), the abs/square/sdf

@@ -1,13 +1,14 @@
 // Value and spatial gradient of the fused field query at the bf16 tier, on
 // Hopper's warpgroup tensor cores (wgmma) fed by TMA.
 //
-// Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad with
-// fuse_pe=True, f32_residuals=True at precision "default", in every use at
-// that tier: the forward of the training query
-// (emap_tpu/kernels/mlp_train.py::_train_query), the validation chunks,
-// and the extraction's sweeps at a "default" model precision
-// (kernels/mlp_query.py::value_and_grad_sliced). mlp_query.cu keeps the
-// 3xTF32 tier, and a bf16 instantiation that is timed beside this kernel.
+// Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad at
+// precision "default", in every use at that tier: with f32_residuals=True
+// the forward of the training query
+// (emap_tpu/kernels/mlp_train.py::_train_query) and the validation chunks;
+// with f32_residuals=False the extraction's sweeps at a "default" model
+// precision (kernels/mlp_query.py::value_and_grad_sliced, the counterpart
+// of pallas_udf_value_and_grad). mlp_query_tf32.cu takes the 3xTF32 tier;
+// mlp_query.cu's bf16 instantiation is timed beside this kernel.
 //
 // Computes, per point, from the raw points and the fp32 pack (W, B): the
 // blocked PE encode; the hidden linears with softplus(100 z)/100 (the skip
@@ -46,9 +47,12 @@
 //     Jacobian;
 //   * sigmoid(100 z_l) of each hidden layer does not fit beside the tiles:
 //     it goes to device scratch in fp32, as the JAX training forward keeps
-//     it (f32_residuals), written and read back as float4s by the thread
-//     that owns them (the live 8-feature groups only), brought into L2 by
-//     one bulk prefetch as the product whose epilogue reads them starts.
+//     it (f32_residuals=True), or rounded to bf16 for the extraction
+//     sweeps, as the JAX extraction query keeps it (f32_residuals=False:
+//     query_kernel<unsigned short>), written and read back as 16- or
+//     8-byte slots by the thread that owns them (the live 8-feature groups
+//     only), brought into L2 by one bulk prefetch as the product whose
+//     epilogue reads them starts.
 // Launches: pack_kernel, query_kernel.
 
 #include "mlp_wgmma.cuh"
@@ -100,7 +104,7 @@ struct QArgs {
   const float* B;    // (rmax, L)
   float* udf;        // (n,)
   float* grad;       // (8, n)
-  float* side;       // sigmoid side arrays
+  void* side;        // sigmoid side arrays, fp32 or bf16
   long long n;
 };
 
@@ -112,6 +116,8 @@ __device__ __forceinline__ int gin_at(int r, int p) {
   return r * PW + (p ^ (((r >> 1) & 3) << 3));
 }
 
+// S: the side arrays' element, float or unsigned short (bf16 bits).
+template <typename S>
 __global__ void __launch_bounds__(NTW, 1)
     query_kernel(const __grid_constant__ CUtensorMap mw, QArgs a,
                  WLayout wl) {
@@ -160,16 +166,14 @@ __global__ void __launch_bounds__(NTW, 1)
   float acc[64], part[64];
 
   auto wg_sync = [&] { named_sync(1 + wg, WG); };
-  float* const sides = a.side + (size_t)tile_id * (L - 1) * SIDE;
-  auto side = [&](int l, int h, int j) {
-    return side_slot(sides + (size_t)l * SIDE, h, j, t);
-  };
+  S* const sides = static_cast<S*>(a.side) + (size_t)tile_id * (L - 1) * SIDE;
+  auto side = [&](int l) { return sides + (size_t)l * SIDE; };
   auto pt = [&](int e) { return acc_point(t, e); };
   auto ft = [&](int h, int j, int e) { return acc_feature(t, h, j, e); };
   // layer l's sigmoids on their way to L2 while the product whose
   // epilogue reads them runs
   auto prefetch = [&](int l) {
-    if (t == 0) l2_prefetch(sides + (size_t)l * SIDE, SIDE * 4);
+    if (t == 0) l2_prefetch(side(l), SIDE * sizeof(S));
   };
   // nxt's writes visible to wgmma; nxt becomes cur
   auto publish = [&] {
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(NTW, 1)
         if (f < M || !skip) st_bf16(nxt, f, pt(e), act);
       }
       if (128 * h + 8 * j < M)
-        *side(l, h, j) = make_float4(sg[0], sg[1], sg[2], sg[3]);
+        side_put(side(l), h, j, t, make_float4(sg[0], sg[1], sg[2], sg[3]));
     }
   };
   // reverse, layer l >= 1: q = W_l^T g_l; g_{l-1} = q (x 1/sqrt2 at a
@@ -225,7 +229,7 @@ __global__ void __launch_bounds__(NTW, 1)
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (128 * h + 8 * j < c) sv = *side(l - 1, h, j);
+      if (128 * h + 8 * j < c) sv = side_get(side(l - 1), h, j, t);
       const float sg[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -358,7 +362,7 @@ Sizes sizes_of(const WLayout& wl, long long n) {
 extern "C" {
 
 // The scratch and shared memory of a launch at n points: out[0] bf16
-// weight-pack elements, [1] side-array floats, [2] the query kernel's
+// weight-pack elements, [1] side-array elements, [2] the query kernel's
 // dynamic shared bytes, [3] its blocks. 0 on success, 1 on a layout the
 // kernels do not take.
 int emap_mlp_query_wgmma_sizes(const int* layout, long long n,
@@ -373,14 +377,15 @@ int emap_mlp_query_wgmma_sizes(const int* layout, long long n,
 
 // pts (8, n), W (rmax, ldw), B (rmax, L) -> udf (n,), grad (8, n); fp32,
 // contiguous, on the device; n a multiple of 64; tier BF16. Scratch as
-// emap_mlp_query_wgmma_sizes gives it: wb (bf16), side (fp32). Returns
+// emap_mlp_query_wgmma_sizes gives it: wb (bf16), side (fp32, or bf16 when
+// bf16_side: the sigmoid residuals rounded to bf16). Returns
 // cudaErrorInvalidValue on anything else or a tensor map
 // cuTensorMapEncodeTiled refuses, else the first nonzero CUDA error (the
 // shared-memory opt-in, each launch).
 int emap_mlp_query_wgmma(const float* pts, const float* W, const float* B,
-                         float* udf, float* grad, void* wb, float* side,
+                         float* udf, float* grad, void* wb, void* side,
                          long long n, const int* layout, float scale,
-                         int tier, void* stream) {
+                         int tier, int bf16_side, void* stream) {
   WLayout wl;
   if (parse_query(layout, scale, &wl) || n <= 0 || n % PW || tier != BF16)
     return (int)cudaErrorInvalidValue;
@@ -388,8 +393,10 @@ int emap_mlp_query_wgmma(const float* pts, const float* W, const float* B,
   const Sizes sz = sizes_of(wl, n);
   CUtensorMap mw;
   if (bf16_box_map(&mw, wb, FMAX, wl.ldwb)) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      bf16_side ? query_kernel<unsigned short> : query_kernel<float>;
   int err = (int)cudaFuncSetAttribute(
-      query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM);
   if (err) return err;
 
   pack_kernel<<<132, 256, 0, st>>>(W, (unsigned short*)wb, wl);
@@ -397,7 +404,7 @@ int emap_mlp_query_wgmma(const float* pts, const float* W, const float* B,
   if (err) return err;
 
   QArgs args{pts, W, B, udf, grad, side, n};
-  query_kernel<<<(unsigned)sz.blocks, NTW, Q_SMEM, st>>>(mw, args, wl);
+  kernel<<<(unsigned)sz.blocks, NTW, Q_SMEM, st>>>(mw, args, wl);
   return (int)cudaGetLastError();
 }
 

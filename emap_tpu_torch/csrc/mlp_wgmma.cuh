@@ -1,5 +1,6 @@
 // Hopper's own machinery for the fused field kernels (mlp_train_wgmma.cu,
-// mlp_query_wgmma.cu): warpgroup matrix products (wgmma) with operands in
+// mlp_query_wgmma.cu; mlp_query_tf32.cu takes the mbarrier, TMA, warpgroup
+// and side-array pieces): warpgroup matrix products (wgmma) with operands in
 // shared memory, TMA copies between device and shared memory, the
 // mbarriers that report them, the register split between a producer
 // warpgroup and its consumers, and the chain engine the two kernels share
@@ -447,6 +448,31 @@ __device__ __forceinline__ int acc_feature(int t, int h, int j, int e) {
 __device__ __forceinline__ float4* side_slot(float* arr, int h, int j,
                                              int t) {
   return reinterpret_cast<float4*>(arr) + (h * 16 + j) * WG + t;
+}
+
+// The same slot's four values stored as fp32 (float arrays) or rounded to
+// bf16, to nearest even (unsigned short arrays: the JAX extraction query's
+// sigmoid residuals, f32_residuals=False), and read back as fp32.
+__device__ __forceinline__ void side_put(float* arr, int h, int j, int t,
+                                         float4 v) {
+  *side_slot(arr, h, j, t) = v;
+}
+__device__ __forceinline__ void side_put(unsigned short* arr, int h, int j,
+                                         int t, float4 v) {
+  reinterpret_cast<uint2*>(arr)[(h * 16 + j) * WG + t] = make_uint2(
+      bf16_bits(v.x) | ((unsigned)bf16_bits(v.y) << 16),
+      bf16_bits(v.z) | ((unsigned)bf16_bits(v.w) << 16));
+}
+__device__ __forceinline__ float4 side_get(float* arr, int h, int j, int t) {
+  return *side_slot(arr, h, j, t);
+}
+__device__ __forceinline__ float4 side_get(unsigned short* arr, int h, int j,
+                                           int t) {
+  const uint2 u = reinterpret_cast<uint2*>(arr)[(h * 16 + j) * WG + t];
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // The head's dot w . tile over `in` features at tier bf16 for a

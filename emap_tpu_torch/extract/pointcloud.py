@@ -220,11 +220,13 @@ def extract_gradient_fields(params, ucfg: UDFConfig, bound_min, bound_max,
                             chunk: int = 65536) -> np.ndarray:
     """Dense UDF-gradient grid over the box, (res, res, res, 3) numpy
     float32: the JAX package's extract_gradient_fields, through the sliced
-    value-and-gradient kernel in launches of `chunk` points."""
+    value-and-gradient kernel in launches of `chunk` points, with fp32
+    sigmoid residuals (the JAX package's takes autodiff's at every tier)."""
     pts = torch.as_tensor(_box_points(bound_min, bound_max, resolution),
                           device=params_device(params))
     with torch.no_grad():
-        grads = torch.cat([query_value_and_grad(params, p, ucfg)[1]
+        grads = torch.cat([query_value_and_grad(params, p, ucfg,
+                                                f32_residuals=True)[1]
                            for p in pts.split(chunk)])
     return grads.cpu().numpy().reshape((resolution,) * 3 + (3,))
 

@@ -12,21 +12,29 @@ value alone for the extraction grid.
   CUDA tensor launches the kernels that replace
   emap_tpu/kernels/mlp_query.py::_pallas_value_and_grad, or raises: at the
   bf16 tier csrc/mlp_query_wgmma.cu (wgmma and TMA: a weight-pack prologue
-  and the chain kernel), at the 3xTF32 tier csrc/mlp_query.cu (mma.sync).
+  and the chain kernel), at the 3xTF32 tier csrc/mlp_query_tf32.cu (wgmma
+  .tf32 and TMA: a pre-split weight-pack prologue and the chain kernel).
   `value_and_grad.launches` counts one call as one launch, and
   `value_and_grad.tier_launches` the same by kernel tier.
-  `value_and_grad_mma_sync` runs mlp_query.cu at either tier, its bf16
-  instantiation included, for timing beside the wgmma kernel, and
-  `value_and_grad_wgmma_parts` returns what each wgmma launch wrote; the
-  training path calls neither.
+  `value_and_grad_mma_sync` runs csrc/mlp_query.cu (mma.sync) at either
+  tier, for timing beside the wgmma kernels, and
+  `value_and_grad_wgmma_parts` / `value_and_grad_tf32_parts` return what
+  each launch of the wgmma kernels wrote; no path calls them.
 * The wgmma chain engine's Python side (csrc/mlp_wgmma.cuh, shared with
   #2's kernels in kernels/mlp_train.py): `wgmma_layout` (the bf16 weight
   pack and #2's factor rows), `pack_weights_bf16` (the prologue's plain
   version), `query_wgmma_plan` (shared memory, registers and scratch of
   a launch of #1a's; refuses a net that does not fit) and
   `query_wgmma_launch_costs` (FLOP and bytes of each launch).
-  `value_and_grad_sliced` calls it over slices of at most SLICE_CAP points,
-  which bounds the kernel's device scratch on the extraction's large calls.
+* The 3xTF32 kernel's Python side (csrc/mlp_query_tf32.cu):
+  `query_tf32_layout` (the pre-split pack's blocks), `pack_weights_tf32`
+  (the prologue's plain version, TF32 rounding in torch integer ops) and
+  `unpack_weights_tf32`, `tf32x3_matmul` (one promoted 3xTF32 product, the
+  kernels' numbers on the CPU), `query_tf32_plan` and
+  `query_tf32_launch_costs`.
+* `value_and_grad_sliced` calls `value_and_grad` over slices of at most
+  SLICE_CAP points, which bounds the kernels' device scratch on the
+  extraction's large calls.
 * `value`: the same for csrc/mlp_value.cu (replaces
   emap_tpu/kernels/mlp_query.py::_pallas_value), with `value.launches`.
 * `query_value`, `query_value_and_grad`: (M, 3) points in, padded to the
@@ -43,9 +51,12 @@ tiers (kernel_tier), one bf16 pass ("default": weights or their
 transpose, activations, the chain's cotangents and the encoded rows
 rounded to bf16, fp32 products and sums) and fp32 ("high", "highest":
 3xTF32 on the tensor cores). Bias adds, softplus, sigmoids, the PE and its
-Jacobian stay fp32. The JAX package's extraction query also keeps its
-sigmoid residuals in bf16 on the fast tiers (mlp_query.py:315-319), a
-workaround for the TPU's VMEM; the port keeps them in fp32 at every tier.
+Jacobian stay fp32. The sigmoid residuals that the reverse pass multiplies
+by are the JAX package's (`f32_residuals`, mlp_query.py:313-319): fp32 in
+the training query (f32_residuals=True, as emap_tpu/kernels/mlp_train.py
+passes it), rounded to bf16 in the extraction query at "default" and
+"high" (f32_residuals=False, as pallas_udf_value_and_grad runs it:
+value_and_grad_sliced, query_value_and_grad), fp32 at "highest".
 """
 
 from __future__ import annotations
@@ -262,12 +273,16 @@ def head_value(y0, cfg: UDFConfig):
     return y0 / cfg.scale
 
 
-def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """Plain PyTorch version of the fused query: x_T (8, N) raw points ->
-    (udf (N,), grad (8, N)). The same math as the kernel, feature-major:
-    encode, forward keeping sigmoid(100 z), reverse through W^T, PE
-    Jacobian; every product at cfg.precision."""
-    tier = cfg.precision
+def bf16_residuals(cfg: UDFConfig, f32_residuals: bool) -> bool:
+    """Whether the reverse pass multiplies by sigmoid(100 z) rounded to
+    bf16: the JAX package's rule (mlp_query.py:313-319), at every tier but
+    "highest" unless f32_residuals."""
+    return not f32_residuals and cfg.precision != "highest"
+
+
+def _plain_forward(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """The plain query's forward: (x, uf, layers, y0 (1, N), [sigmoid(100
+    z_l) (out_l, N)] per hidden layer, fp32)."""
     layers = unpack_weights(w_pack, b_pack, cfg)
     L = len(layers)
     d0 = cfg.dims[0]
@@ -277,18 +292,36 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
     for l, (w, b) in enumerate(layers):
         if l in cfg.skip_in:
             h = torch.cat([h, x[:d0]], dim=0) * INV_SQRT2
-        z = tier_dot(w, h, tier) + b[:, None]
+        z = tier_dot(w, h, cfg.precision) + b[:, None]
         if l < L - 1:
             sigmoids.append(torch.sigmoid(100.0 * z))
             h = softplus100(z)
         else:
             h = z
-    y0 = h[:1]
+    return x, uf, layers, h[:1], sigmoids
+
+
+def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig,
+                         f32_residuals: bool = True, residuals=None):
+    """Plain PyTorch version of the fused query: x_T (8, N) raw points ->
+    (udf (N,), grad (8, N)). The same math as the kernel, feature-major:
+    encode, forward keeping sigmoid(100 z) (rounded to bf16, to nearest
+    even, where bf16_residuals), reverse through W^T, PE Jacobian; every
+    product at cfg.precision. `residuals`, [(out_l, N)] per hidden layer,
+    replaces the sigmoids the reverse pass multiplies by (a kernel's own,
+    side_residuals: its bf16 roundings of values an fp32 ulp from the plain
+    version's may fall on either side of a rounding boundary)."""
+    x, uf, layers, y0, sigmoids = _plain_forward(x_T, w_pack, b_pack, cfg)
+    if residuals is not None:
+        sigmoids = list(residuals)
+    elif bf16_residuals(cfg, f32_residuals):
+        sigmoids = [round_bf16(s) for s in sigmoids]
+    d0 = cfg.dims[0]
     udf = head_value(y0, cfg)
     g = dy_of_y0(y0, cfg)
     g_inputs = torch.zeros_like(x)
-    for l in reversed(range(L)):
-        g = tier_dot(layers[l][0].T, g, tier)  # (in_l, T)
+    for l in reversed(range(len(layers))):
+        g = tier_dot(layers[l][0].T, g, cfg.precision)  # (in_l, T)
         if l in cfg.skip_in:
             g_inputs = g_inputs + torch.nn.functional.pad(
                 g[-d0:] * INV_SQRT2, (0, 0, 0, g_inputs.shape[0] - d0))
@@ -298,6 +331,32 @@ def value_and_grad_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
             continue
         g = g * sigmoids[l - 1]
     return udf[0], pe_jac_fused(uf, g_inputs, cfg)
+
+
+def plain_residuals(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """[sigmoid(100 z_l) (out_l, N)] per hidden layer, fp32, as
+    value_and_grad_plain's forward computes them."""
+    return _plain_forward(x_T, w_pack, b_pack, cfg)[4]
+
+
+def side_residuals(side, cfg: UDFConfig, n: int):
+    """The sigmoid residuals a wgmma query kernel (csrc/mlp_query_wgmma.cu,
+    csrc/mlp_query_tf32.cu) left in its side scratch, [(out_l, n)] per
+    hidden layer in fp32. Per 64-point tile and hidden layer the scratch
+    holds 256 x 64 values: slot (16 h + j) x 128 + t (csrc/mlp_wgmma.cuh:
+    side_slot) of 4 values e holds feature 128 h + 8 j + 2 (t % 4) + (e & 1)
+    of point 16 (t // 32) + (t % 32) // 4 + 8 (e >> 1); only the live
+    8-feature groups are written."""
+    dims = layer_dims(cfg)[:-1]
+    tiles = -(-n // POINT_TILE)
+    a = side[: tiles * len(dims) * WGMMA_FMAX * POINT_TILE].float().view(
+        tiles, len(dims), 2, 16, 4, 8, 4, 2, 2)
+    # (tile, layer, h, j, warp, lane // 4, lane % 4, e >> 1, e & 1) ->
+    # (layer, feature (h, j, lane % 4, e & 1), point (tile, warp, e >> 1,
+    # lane // 4))
+    a = a.permute(1, 2, 3, 6, 8, 0, 4, 7, 5).reshape(
+        len(dims), WGMMA_FMAX, tiles * POINT_TILE)
+    return [a[l, :o, :n] for l, (_, o) in enumerate(dims)]
 
 
 def value_plain(x_T, w_pack, b_pack, cfg: UDFConfig):
@@ -411,17 +470,27 @@ def pack_weights_bf16(w_pack, cfg: UDFConfig):
     return out
 
 
+def check_query_cfg(cfg: UDFConfig) -> dict:
+    """wgmma_layout(cfg) for a net both wgmma query kernels take. Raises
+    ValueError, on every device, for one they do not: check_engine_cfg's
+    refusals and an encoded input wider than their QUERY_GIN_ROWS-row
+    d udf / d x-tilde block."""
+    lay = check_engine_cfg(cfg)
+    d0p = lay["dims"][0][0]
+    if d0p > QUERY_GIN_ROWS:
+        raise ValueError(f"the wgmma query kernels take an encoded input up "
+                         f"to {QUERY_GIN_ROWS} wide, not {d0p}")
+    return lay
+
+
 def query_wgmma_plan(cfg: UDFConfig, n: int) -> dict:
     """Shared memory, registers and device scratch of one launch of #1a's
     wgmma kernels at n points, as csrc/mlp_query_wgmma.cu reckons them
     (emap_mlp_query_wgmma_sizes). Raises ValueError for a net they do not
     take, on every device: check_engine_cfg's refusals, an encoded input
     wider than QUERY_GIN_ROWS, or a plan past the block's shared memory."""
-    lay = check_engine_cfg(cfg)
+    lay = check_query_cfg(cfg)
     dims = lay["dims"]
-    if dims[0][0] > QUERY_GIN_ROWS:
-        raise ValueError(f"the wgmma query kernel takes an encoded input up "
-                         f"to {QUERY_GIN_ROWS} wide, not {dims[0][0]}")
     parts = dict(engine_smem(), **{
         "d udf / d x-tilde (2 warpgroups x 64 rows x 64 fp32)":
             2 * QUERY_GIN_ROWS * 64 * 4,
@@ -466,6 +535,198 @@ def query_wgmma_launch_costs(cfg: UDFConfig, n: int) -> dict:
     }
 
 
+# The 3xTF32 kernel (csrc/mlp_query_tf32.cu): a block is 64 points, a
+# producer warpgroup and two consumer warpgroups (one 128-wide half of each
+# product's outputs each), a ring of TF32_STAGES weight chunks (128 outputs
+# x 32 contraction steps, fp32 hi and lo: 32 KB) and one fp32 activation
+# tile, whose A fragments each consumer splits in registers.
+TF32_BLOCK_POINTS = 64
+TF32_STAGES = 4
+TF32_CHUNK = 32  # contraction steps a chunk: one 128-byte row of fp32
+# Within each 8-column group of the pack, the feature at position p: the A
+# fragment's k positions q and q + 4 hold the pair of features 2q, 2q + 1
+# that an accumulator fragment holds (csrc/mlp_query_tf32.cu: tf32_perm).
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+# a consumer thread's fp32 accumulators (running sum and chunk, one m64n128
+# half) and its split A fragments of a chunk (4 k8 steps x 4, hi and lo)
+TF32_REGISTERS = {"accumulators": 2 * 64, "a_fragments": 2 * 4 * 4,
+                  "consumer": 232, "producer": 40}
+
+
+def query_tf32_layout(cfg: UDFConfig) -> dict:
+    """The 3xTF32 pack's blocks (csrc/mlp_query_tf32.cu: parse_tf32): per
+    hidden layer l (the head is fp32 FMA), its forward block (out_l rows,
+    kf_l = in_l rounded up to TF32_CHUNK columns) at column offf_l and its
+    transposed block (in_l rows, kt_l = out_l rounded up) at column ldf +
+    offt_l of a (2 x WGMMA_FMAX, ldp) fp32 array, hi rows above lo rows."""
+    dims = layer_dims(cfg)[:-1]
+    kf = [round_up(i, TF32_CHUNK) for i, _ in dims]
+    kt = [round_up(o, TF32_CHUNK) for _, o in dims]
+    offf = [sum(kf[:l]) for l in range(len(dims))]
+    offt = [sum(kt[:l]) for l in range(len(dims))]
+    return {"dims": dims, "kf": kf, "kt": kt, "offf": offf, "offt": offt,
+            "ldf": sum(kf), "ldt": sum(kt), "ldp": sum(kf) + sum(kt)}
+
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on an fp32 tensor (the kernels' tf32_rna): the
+    magnitude rounded to 10 mantissa bits, ties away from zero, on the
+    int32 view."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor):
+    """(hi, lo) = (rna(a), rna(a - hi)): the kernels' split3."""
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def _perm_columns(k: int, perm, device) -> torch.Tensor:
+    """Column c of a k-wide block holds feature (c & ~7) | perm[c & 7]."""
+    c = torch.arange(k, device=device)
+    return (c & ~7) | torch.as_tensor(perm, device=device)[c & 7]
+
+
+def pack_weights_tf32(w_pack, cfg: UDFConfig) -> torch.Tensor:
+    """The 3xTF32 kernel's weight pack, (2 x WGMMA_FMAX, ldp) fp32: each
+    hidden layer's block of w_pack (forward) and its transpose, at their
+    query_tf32_layout columns, the columns of each 8-group in TF32_PERM
+    order, zeros past the live rows and columns; hi = rna(w) in the first
+    WGMMA_FMAX rows, lo = rna(w - hi) in the rest. The plain version of
+    the prologue (pack_tf32_kernel)."""
+    lay = query_tf32_layout(cfg)
+    dev = w_pack.device
+    full = torch.zeros(WGMMA_FMAX, lay["ldp"], dtype=torch.float32,
+                       device=dev)
+    off = 0
+    for (i, o), kf, kt, cf, c_t in zip(lay["dims"], lay["kf"], lay["kt"],
+                                       lay["offf"], lay["offt"]):
+        w = w_pack[:o, off: off + i].to(torch.float32)
+        off += i
+        wf = torch.zeros(o, kf, dtype=torch.float32, device=dev)
+        wf[:, :i] = w
+        wt = torch.zeros(i, kt, dtype=torch.float32, device=dev)
+        wt[:, :o] = w.T
+        full[:o, cf: cf + kf] = wf[:, _perm_columns(kf, TF32_PERM, dev)]
+        ct = lay["ldf"] + c_t
+        full[:i, ct: ct + kt] = wt[:, _perm_columns(kt, TF32_PERM, dev)]
+    hi, lo = split_tf32(full)
+    return torch.cat([hi, lo], dim=0)
+
+
+def unpack_weights_tf32(pack, cfg: UDFConfig):
+    """[(W_l (out_l, in_l), W_l^T (in_l, out_l))] per hidden layer from a
+    3xTF32 pack: hi + lo in fp32 with the column order undone."""
+    lay = query_tf32_layout(cfg)
+    whole = pack[:WGMMA_FMAX] + pack[WGMMA_FMAX:]
+    inv = [TF32_PERM.index(p) for p in range(8)]
+    out = []
+    for (i, o), kf, kt, cf, c_t in zip(lay["dims"], lay["kf"], lay["kt"],
+                                       lay["offf"], lay["offt"]):
+        fwd = whole[:, cf: cf + kf][:, _perm_columns(kf, inv, pack.device)]
+        ct = lay["ldf"] + c_t
+        trans = whole[:, ct: ct + kt][:, _perm_columns(kt, inv,
+                                                       pack.device)]
+        out.append((fwd[:o, :i], trans[:i, :o]))
+    return out
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ b (K, N) in fp32 as the 3xTF32 kernels sum it: each
+    TF32_CHUNK-deep chunk's k8 steps, lo*hi, hi*lo, then hi*hi, into a
+    fresh accumulator that is then added to the running sum (the plain
+    twin of one promoted product; a k8 step's own sum order is the tensor
+    cores')."""
+    k = a.shape[1]
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                      device=a.device)
+    for c in range(0, k, TF32_CHUNK):
+        part = torch.zeros_like(acc)
+        for s in range(c, min(c + TF32_CHUNK, k), 8):
+            ks = slice(s, min(s + 8, k))
+            part = part + al[:, ks] @ bh[ks]
+            part = part + ah[:, ks] @ bl[ks]
+            part = part + ah[:, ks] @ bh[ks]
+        acc = acc + part
+    return acc
+
+
+def query_tf32_plan(cfg: UDFConfig, n: int) -> dict:
+    """Shared memory, registers and device scratch of one launch of the
+    3xTF32 query kernels at n points, as csrc/mlp_query_tf32.cu reckons them
+    (emap_mlp_query_tf32_sizes), and the ring entries a block streams.
+    Raises ValueError for a net they do not take (check_query_cfg) or a
+    plan past the block's shared memory, on every device."""
+    check_query_cfg(cfg)
+    lay = query_tf32_layout(cfg)
+    chunk = WGMMA_FMAX // 2 * TF32_CHUNK * 4  # 128 x 32 fp32
+    parts = {
+        f"weight ring ({TF32_STAGES} stages of 128 x 32 fp32, hi and lo)":
+            TF32_STAGES * 2 * chunk,
+        "activation tile (64 points x 256 fp32)": 64 * WGMMA_FMAX * 4,
+        "d udf / d x-tilde (64 rows x 64 fp32)": QUERY_GIN_ROWS * 64 * 4,
+        "head sums and d udf / d y0": (4 * 64 + 64) * 4,
+        "mbarriers": 2 * TF32_STAGES * 8, "alignment": 1024,
+    }
+    smem = sum(parts.values())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the 3xTF32 query kernel needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    # ring entries of a block: each product's chunks x its 128-wide halves,
+    # 64 or 128 rows of hi and of lo each
+    entries, stream = 0, 0
+    for (i, o), kf, kt in zip(lay["dims"], lay["kf"], lay["kt"]):
+        for n_out, k in ((o, kf), (i, kt)):
+            for h in range(-(-n_out // 128)):
+                rows = 128 if n_out - 128 * h > 64 else 64
+                entries += k // TF32_CHUNK
+                stream += k // TF32_CHUNK * 2 * rows * TF32_CHUNK * 4
+    blocks = -(-n // TF32_BLOCK_POINTS)
+    return {
+        "smem": smem, "smem_parts": parts,
+        "registers": dict(TF32_REGISTERS), "blocks": blocks,
+        "stages": TF32_STAGES, "pack": 2 * WGMMA_FMAX * lay["ldp"],
+        # sigmoid(100 z_l) of each hidden layer: WGMMA_FMAX a point, fp32
+        # or bf16 elements
+        "side": blocks * len(lay["dims"]) * WGMMA_FMAX * 64,
+        "entries_per_block": entries, "stream_bytes_per_block": stream,
+    }
+
+
+def query_tf32_launch_costs(cfg: UDFConfig, n: int,
+                            f32_residuals: bool = True) -> dict:
+    """Each launch of the 3xTF32 query kernels at n points: the FLOP of its
+    products (2 * in * out each, unpadded shapes, forward and reverse; the
+    kernel does three TF32 passes of each) and the bytes it must move (each
+    input read once, each output written once); beside them the chain
+    kernel's sigmoid side-array traffic (written once and read once, the
+    live 8-feature groups, fp32 or bf16 as bf16_residuals) and the weight
+    chunks its blocks stream from L2 (stream_bytes_per_block x blocks)."""
+    lay = query_tf32_layout(cfg)
+    dims = layer_dims(cfg)
+    shapes = [(i, o) for _, i, o in cfg.layer_shapes()]
+    L, rmax, ldw = len(dims), max(o for _, o in dims), sum(
+        i for i, _ in dims)
+    f32 = 4
+    w_bytes, pk_bytes = f32 * rmax * ldw, f32 * 2 * WGMMA_FMAX * lay["ldp"]
+    elem = 2 if bf16_residuals(cfg, f32_residuals) else 4
+    side = 2 * elem * n * sum(round_up(o, 8) for _, o in dims[:-1])
+    plan = query_tf32_plan(cfg, n)
+    return {
+        "pack": {"flops": 0, "bytes": w_bytes + pk_bytes},
+        # points (8, n) in; udf (n,) and grad (8, n) out; the pack, the
+        # head's fp32 row and the biases
+        "query": {"flops": 4 * sum(i * o for i, o in shapes) * n,
+                  "bytes": f32 * 17 * n + pk_bytes + f32 * dims[-1][0]
+                  + f32 * rmax * L, "side_bytes": side,
+                  "stream_bytes": plan["blocks"]
+                  * plan["stream_bytes_per_block"]},
+    }
+
+
 def _query_lib():
     from emap_tpu_torch.kernels import build
 
@@ -492,8 +753,24 @@ def _query_wgmma_lib():
         lib.emap_mlp_query_wgmma_sizes.restype = ctypes.c_int
         lib.emap_mlp_query_wgmma.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
-            ctypes.c_int, vp]
+            ctypes.c_int, ctypes.c_int, vp]
         lib.emap_mlp_query_wgmma.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def _query_tf32_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_query_tf32")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_query_tf32_sizes.argtypes = [vp, ctypes.c_longlong, vp]
+        lib.emap_mlp_query_tf32_sizes.restype = ctypes.c_int
+        lib.emap_mlp_query_tf32.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, vp]
+        lib.emap_mlp_query_tf32.restype = ctypes.c_int
         lib._emap_typed = True
     return lib
 
@@ -509,7 +786,26 @@ def query_wgmma_sizes(cfg: UDFConfig, n: int) -> dict:
     return dict(zip(("wb", "side", "smem", "blocks"), list(out)))
 
 
-def _launch_wgmma(x_T, w_pack, b_pack, cfg, n):
+def query_tf32_sizes(cfg: UDFConfig, n: int) -> dict:
+    """The 3xTF32 query library's own reckoning of a launch at n points
+    (card only; the CPU reckons query_tf32_plan): pack, side, smem,
+    blocks."""
+    out = (ctypes.c_longlong * 4)()
+    if _query_tf32_lib().emap_mlp_query_tf32_sizes(
+            kernel_layout(cfg).ctypes.data, n, out):
+        raise ValueError("layout refused by the 3xTF32 query kernel")
+    return dict(zip(("pack", "side", "smem", "blocks"), list(out)))
+
+
+def _side(n_elems, cfg, f32_residuals, dev):
+    """The sigmoid side arrays' scratch: bf16 where bf16_residuals, else
+    fp32."""
+    bf16 = bf16_residuals(cfg, f32_residuals)
+    return torch.empty(n_elems, device=dev,
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
+def _launch_wgmma(x_T, w_pack, b_pack, cfg, n, f32_residuals):
     """(udf, grad, scratch): the wgmma launches and the scratch they
     wrote."""
     lib = _query_wgmma_lib()
@@ -518,16 +814,39 @@ def _launch_wgmma(x_T, w_pack, b_pack, cfg, n):
     udf = torch.empty(n, device=dev, dtype=torch.float32)
     grad = torch.empty(8, n, device=dev, dtype=torch.float32)
     wb = torch.empty(plan["wb"], device=dev, dtype=torch.bfloat16)
-    side = torch.empty(plan["side"], device=dev, dtype=torch.float32)
+    side = _side(plan["side"], cfg, f32_residuals, dev)
     err = lib.emap_mlp_query_wgmma(
         x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
         grad.data_ptr(), wb.data_ptr(), side.data_ptr(), n,
         kernel_layout(cfg).ctypes.data, float(cfg.scale), 1,
+        int(bf16_residuals(cfg, f32_residuals)),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"mlp_query_wgmma kernel launch failed: CUDA "
                            f"error {err}")
-    return udf, grad, {"wb": wb.view(WGMMA_FMAX, -1)}
+    return udf, grad, {"wb": wb.view(WGMMA_FMAX, -1), "side": side}
+
+
+def _launch_tf32(x_T, w_pack, b_pack, cfg, n, f32_residuals):
+    """(udf, grad, scratch): the 3xTF32 launches and the pack they
+    wrote."""
+    lib = _query_tf32_lib()
+    plan = query_tf32_plan(cfg, n)
+    dev = x_T.device
+    udf = torch.empty(n, device=dev, dtype=torch.float32)
+    grad = torch.empty(8, n, device=dev, dtype=torch.float32)
+    pack = torch.empty(plan["pack"], device=dev, dtype=torch.float32)
+    side = _side(plan["side"], cfg, f32_residuals, dev)
+    err = lib.emap_mlp_query_tf32(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
+        grad.data_ptr(), pack.data_ptr(), side.data_ptr(), n,
+        kernel_layout(cfg).ctypes.data, float(cfg.scale), 0,
+        int(bf16_residuals(cfg, f32_residuals)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mlp_query_tf32 kernel launch failed: CUDA "
+                           f"error {err}")
+    return udf, grad, {"pack": pack.view(2 * WGMMA_FMAX, -1), "side": side}
 
 
 def _launch_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
@@ -550,18 +869,19 @@ def _launch_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
     return udf, grad
 
 
-def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """(udf (N,), grad (8, N)) at raw points x_T (8, N), at cfg.precision.
+def value_and_grad(x_T, w_pack, b_pack, cfg: UDFConfig,
+                   f32_residuals: bool = True):
+    """(udf (N,), grad (8, N)) at raw points x_T (8, N), at cfg.precision,
+    with the sigmoid residuals as bf16_residuals(cfg, f32_residuals) says.
     CPU tensors take value_and_grad_plain; CUDA tensors launch the kernels:
-    the wgmma ones at the bf16 tier, mlp_query.cu's at 3xTF32."""
+    mlp_query_wgmma.cu's at the bf16 tier, mlp_query_tf32.cu's at
+    3xTF32."""
     if not x_T.is_cuda:
-        return value_and_grad_plain(x_T, w_pack, b_pack, cfg)
+        return value_and_grad_plain(x_T, w_pack, b_pack, cfg, f32_residuals)
     n = check_operands(cfg, (x_T, w_pack, b_pack))
     tier = kernel_tier(cfg.precision)
-    if tier == 1:
-        udf, grad = _launch_wgmma(x_T, w_pack, b_pack, cfg, n)[:2]
-    else:
-        udf, grad = _launch_mma_sync(x_T, w_pack, b_pack, cfg, n, tier)
+    launch = _launch_wgmma if tier == 1 else _launch_tf32
+    udf, grad = launch(x_T, w_pack, b_pack, cfg, n, f32_residuals)[:2]
     value_and_grad.launches += 1
     value_and_grad.tier_launches[TIER_NAMES[tier]] += 1
     return udf, grad
@@ -571,40 +891,60 @@ value_and_grad.launches = 0
 value_and_grad.tier_launches = dict.fromkeys(TIER_NAMES, 0)
 
 
-def value_and_grad_wgmma_parts(x_T, w_pack, b_pack, cfg: UDFConfig):
+def value_and_grad_wgmma_parts(x_T, w_pack, b_pack, cfg: UDFConfig,
+                               f32_residuals: bool = True):
     """One launch of #1a's wgmma kernels on CUDA tensors at cfg (the bf16
-    tier) with what each launch wrote: udf, grad and wb (the prologue's
-    bf16 pack), to hold each launch against its plain version. Counted in
-    no launch count; the training path never calls it."""
+    tier) with what each launch wrote: udf, grad, wb (the prologue's bf16
+    pack) and side (the sigmoid residuals: side_residuals), to hold each
+    launch against its plain version. Counted in no launch count; no path
+    calls it."""
     n = check_operands(cfg, (x_T, w_pack, b_pack))
     if kernel_tier(cfg.precision) != 1:
         raise ValueError("the wgmma query kernels run the bf16 tier only")
-    udf, grad, scratch = _launch_wgmma(x_T, w_pack, b_pack, cfg, n)
+    udf, grad, scratch = _launch_wgmma(x_T, w_pack, b_pack, cfg, n,
+                                       f32_residuals)
+    return dict(scratch, udf=udf, grad=grad)
+
+
+def value_and_grad_tf32_parts(x_T, w_pack, b_pack, cfg: UDFConfig,
+                              f32_residuals: bool = True):
+    """One launch of the 3xTF32 query kernels on CUDA tensors at cfg
+    ("high" or "highest") with what each launch wrote: udf, grad, pack (the
+    prologue's pre-split pack) and side (the sigmoid residuals:
+    side_residuals), to hold each launch against its plain version. Counted
+    in no launch count; no path calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    if kernel_tier(cfg.precision) != 0:
+        raise ValueError("the 3xTF32 query kernels run the fp32 tiers only")
+    udf, grad, scratch = _launch_tf32(x_T, w_pack, b_pack, cfg, n,
+                                      f32_residuals)
     return dict(scratch, udf=udf, grad=grad)
 
 
 def value_and_grad_mma_sync(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """csrc/mlp_query.cu at cfg's tier, its bf16 instantiation included, on
-    CUDA tensors: the mma.sync design timed beside the wgmma kernels.
-    Counted in no launch count; the training path never calls it."""
+    """csrc/mlp_query.cu at cfg's tier, on CUDA tensors, with fp32
+    residuals: the mma.sync design timed beside the wgmma kernels. Counted
+    in no launch count; no path calls it."""
     n = check_operands(cfg, (x_T, w_pack, b_pack))
     return _launch_mma_sync(x_T, w_pack, b_pack, cfg, n,
                             kernel_tier(cfg.precision))
 
 
 def value_and_grad_sliced(x_T, w_pack, b_pack, cfg: UDFConfig,
-                          cap: int = SLICE_CAP):
+                          cap: int = SLICE_CAP, f32_residuals: bool = False):
     """value_and_grad over slices of at most `cap` points (a multiple of
     POINT_TILE), concatenated: one launch per slice on the card, so the
     kernel's scratch never exceeds `cap` points' worth. Points are
-    independent, so the result does not depend on the slicing."""
+    independent, so the result does not depend on the slicing. The
+    residuals default to the JAX extraction query's
+    (pallas_udf_value_and_grad: f32_residuals=False)."""
     n = x_T.shape[1]
     if cap <= 0 or cap % POINT_TILE:
         raise ValueError(f"cap must be a positive multiple of {POINT_TILE}")
     if n <= cap:
-        return value_and_grad(x_T, w_pack, b_pack, cfg)
+        return value_and_grad(x_T, w_pack, b_pack, cfg, f32_residuals)
     parts = [value_and_grad(x_T[:, s: s + cap].contiguous(), w_pack, b_pack,
-                            cfg) for s in range(0, n, cap)]
+                            cfg, f32_residuals) for s in range(0, n, cap)]
     return (torch.cat([u for u, _ in parts]),
             torch.cat([g for _, g in parts], dim=1))
 
@@ -673,12 +1013,15 @@ def query_value(params, pts, cfg: UDFConfig):
     return value(x_T, w_pack, b_pack, cfg)[:m]
 
 
-def query_value_and_grad(params, pts, cfg: UDFConfig, cap: int = SLICE_CAP):
+def query_value_and_grad(params, pts, cfg: UDFConfig, cap: int = SLICE_CAP,
+                         f32_residuals: bool = False):
     """(udf (M,), grad (M, 3)) at (M, 3) points through the sliced
-    value-and-gradient kernel: the counterpart of pallas_udf_value_and_grad.
-    No autograd graph."""
+    value-and-gradient kernel: the counterpart of pallas_udf_value_and_grad,
+    with its bf16 sigmoid residuals unless f32_residuals. No autograd
+    graph."""
     x_T, w_pack, b_pack, m = _packed_points(params, pts, cfg)
-    udf, grad = value_and_grad_sliced(x_T, w_pack, b_pack, cfg, cap)
+    udf, grad = value_and_grad_sliced(x_T, w_pack, b_pack, cfg, cap,
+                                      f32_residuals)
     return udf[:m], grad[:3, :m].T
 
 
@@ -699,7 +1042,11 @@ __all__ = [
     "unpack_weights", "pe_perm", "blocked_pe_columns", "layer_dims",
     "kernel_layout", "value_and_grad", "value_and_grad_plain",
     "value_and_grad_sliced", "value_and_grad_mma_sync",
-    "value_and_grad_wgmma_parts", "value", "value_plain", "query_value",
-    "query_value_and_grad", "query_flops", "value_flops", "wgmma_layout",
-    "pack_weights_bf16", "query_wgmma_plan", "query_wgmma_launch_costs",
+    "value_and_grad_wgmma_parts", "value_and_grad_tf32_parts", "value",
+    "value_plain", "query_value", "query_value_and_grad", "query_flops",
+    "value_flops", "wgmma_layout", "pack_weights_bf16", "query_wgmma_plan",
+    "query_wgmma_launch_costs", "bf16_residuals", "query_tf32_layout",
+    "pack_weights_tf32", "unpack_weights_tf32", "tf32x3_matmul",
+    "query_tf32_plan", "query_tf32_launch_costs", "plain_residuals",
+    "side_residuals",
 ]

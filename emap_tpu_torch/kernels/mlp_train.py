@@ -475,7 +475,9 @@ class TrainQuery(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_T, w_pack, b_pack, cfg):
-        udf, grad = mlp_query.value_and_grad(x_T, w_pack, b_pack, cfg)
+        # fp32 residuals, as emap_tpu/kernels/mlp_train.py's _train_query
+        udf, grad = mlp_query.value_and_grad(x_T, w_pack, b_pack, cfg,
+                                             f32_residuals=True)
         ctx.save_for_backward(x_T, w_pack, b_pack)
         ctx.cfg = cfg
         return udf, grad

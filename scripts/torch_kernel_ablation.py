@@ -9,12 +9,13 @@ removed or changed (a source patch below), built with nvcc beside the
 others and timed with CUDA events over 5 launches after a warm-up, in two
 rounds (ablations in turns). Only the kernels whose sources an ablation
 changes are timed for it (all of them for as_built): the training kernels
-at the training step's shape (ABC width, 116,736 points), forward (#1a,
-mlp_query.cu) and backward (#2, mlp_train.cu, with its two main kernels
-from torch.profiler), and the grid value kernel (#3, mlp_value.cu) at a
-128^3 grid pass (2,097,152 points). Every line gives the max relative
-error against the plain PyTorch versions (udf, grad, the worst W-bar/b-bar
-block), and ptxas' registers and spills lead each ablation's lines.
+at the training step's shape (ABC width, 116,736 points), forward (#1a:
+mlp_query.cu's mma.sync design, value_and_grad_mma_sync) and backward (#2,
+mlp_train.cu, with its two main kernels from torch.profiler), and the grid
+value kernel (#3, mlp_value.cu) at a 128^3 grid pass (2,097,152 points).
+Every line gives the max relative error against the plain PyTorch
+versions (udf, grad, the worst W-bar/b-bar block), and ptxas' registers
+and spills lead each ablation's lines.
 Every ablation runs at the 3xTF32 tier (precision "high", fp32 accuracy),
 the tier the design choices were made for; its patches leave the bf16
 tier's kernels in the same libraries building. The wgmma_* ablations
@@ -24,7 +25,14 @@ torch.profiler and the max and mean error against the plain version at
 that pair. The query_wgmma_* ablations patch #1a's wgmma kernel
 (mlp_query_wgmma.cu) and are timed at the bf16 tier it serves, with its
 two launches from torch.profiler and the max and mean error against the
-plain version at that tier. Ablations that drop work give wrong results by
+plain version at that tier. The query_tf32_* ablations patch #1's 3xTF32
+kernel (mlp_query_tf32.cu, the route of "high" and "highest"), timed at
+that tier with fp32 residuals (#1a's field_high route) and with bf16 ones
+(#1b's extraction sweeps), its two launches from torch.profiler and the
+max and mean error against the plain version (the gradient against the
+plain version given the kernel's own residuals with bf16 ones:
+kernels/mlp_query.py::side_residuals). Ablations that drop work give wrong
+results by
 design: they measure what that work costs. The card's name and power
 limit lead the output. No CPU fallback: without CUDA it fails.
 
@@ -457,10 +465,10 @@ ABLATIONS.update({
 # costs), and that math in its exact fp32 forms.
 ABLATIONS.update({
     "query_wgmma_no_side": {"mlp_query_wgmma.cu": [
-        ("      if (128 * h + 8 * j < M)\n        *side(l, h, j) = ",
+        ("      if (128 * h + 8 * j < M)\n        side_put(",
          "      if (128 * h + 8 * j < M && sg[0] == 12345.f)\n"
-         "        *side(l, h, j) = "),
-        ("      if (128 * h + 8 * j < c) sv = *side(l - 1, h, j);",
+         "        side_put("),
+        ("      if (128 * h + 8 * j < c) sv = side_get(side(l - 1), h, j, t);",
          "      if (128 * h + 8 * j < c) sv = make_float4(0.5f, 0.5f, 0.5f, "
          "0.5f);")]},
     "query_wgmma_no_prefetch": {"mlp_query_wgmma.cu": [
@@ -476,6 +484,89 @@ ABLATIONS.update({
         QUERY_EPILOGUE_MATH, QUERY_EPILOGUE_MATH.replace("_approx(", "("))]},
     "query_wgmma_exact_log1p": {"mlp_query_wgmma.cu": [(
         "          : lg * 0.69314718f;", "          : log1pf(e);")]},
+})
+# sig_softplus100_approx of mlp_query_wgmma.cu, for the 3xTF32 kernel's
+# epilogue ablation
+APPROX_MATH = """\
+__device__ __forceinline__ void sig_softplus100_approx(float z, float& sig,
+                                                       float& sp) {
+  const float t = z * 100.f;
+  float e, r, lg;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-fabsf(t) * 1.44269504f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(lg) : "f"(1.f + e));
+  const float lp =
+      e < 0.015625f
+          ? e * (1.f - e * (0.5f - e * (0.33333334f - e * 0.25f)))
+          : lg * 0.69314718f;
+  sig = (t >= 0.f ? 1.f : e) * r;
+  sp = (fmaxf(t, 0.f) + lp) * 0.01f;
+}
+
+struct QArgs {"""
+TF32_EPILOGUE_MATH = (
+    "        sig_softplus100(acc[4 * j + e] + bias, sg[e], act[e]);")
+TF32_PASSES = """      wgmma_tf32<NW>(part, al[s], desc_kmajor(bh, s), s);
+      wgmma_tf32<NW>(part, ah[s], desc_kmajor(bl, s), 1);
+      wgmma_tf32<NW>(part, ah[s], desc_kmajor(bh, s), 1);"""
+# #1's 3xTF32 kernel (mlp_query_tf32.cu), timed at that tier: the sigmoid
+# side arrays' traffic taken out (no store; constant sigmoids read: wrong
+# results, the traffic's cost), their L2 prefetch taken out, the forward
+# epilogue's softplus and sigmoid replaced by a scale and a constant (wrong
+# results: what the exact fp32 math costs) or by the special function
+# unit's approximations (sig_softplus100_approx, the bf16 tier's), one
+# wgmma chain a contraction (no fresh accumulator a 32-step chunk), and
+# one TF32 pass (hi * hi) in place of three (what two passes cost).
+ABLATIONS.update({
+    "query_tf32_no_side": {"mlp_query_tf32.cu": [
+        ("      if (128 * h + 8 * j < M)\n        side_put(",
+         "      if (128 * h + 8 * j < M && sg[0] == 12345.f)\n"
+         "        side_put("),
+        ("      if (128 * h + 8 * j < c) sv = side_get(side(l - 1), h, j, t);",
+         "      if (128 * h + 8 * j < c) sv = make_float4(0.5f, 0.5f, 0.5f, "
+         "0.5f);")]},
+    "query_tf32_no_prefetch": {"mlp_query_tf32.cu": [
+        ("    prefetch(l - 1);\n", "")]},
+    "query_tf32_no_epilogue_math": {"mlp_query_tf32.cu": [(
+        TF32_EPILOGUE_MATH,
+        "        sg[e] = 0.5f;\n"
+        "        act[e] = (acc[4 * j + e] + bias) * 0.01f;")]},
+    "query_tf32_approx_math": {"mlp_query_tf32.cu": [
+        ("struct QArgs {", APPROX_MATH),
+        (TF32_EPILOGUE_MATH,
+         TF32_EPILOGUE_MATH.replace("100(", "100_approx("))]},
+    "query_tf32_no_promotion": {"mlp_query_tf32.cu": [
+        (TF32_PASSES, TF32_PASSES.replace("(part,", "(acc,").replace(
+            "bh, s), s);", "bh, s), 1);")),
+        ("    for (int i2 = 0; i2 < NW / 2; ++i2) acc[i2] += part[i2];\n",
+         "")]},
+    # the lo boxes not loaded, the hi chunk read in their place (half the
+    # weight stream from L2: wrong results, what the stream costs)
+    "query_tf32_half_stream": {"mlp_query_tf32.cu": [
+        ("        mbar_expect_tx(&full[stage], 2 * boxes * T_BOX_BYTES);",
+         "        mbar_expect_tx(&full[stage], boxes * T_BOX_BYTES);"),
+        ("""          tma_load(dst + T_HALF_BYTES + j * T_BOX_BYTES, mp, col + 32 * c,
+                   FMAX + row, &full[stage]);
+""", ""),
+        ("bl = bh + T_HALF_BYTES;", "bl = bh;")]},
+    # a 2-stage ring in place of 4 (half the weight chunks in flight)
+    "query_tf32_stages2": {"mlp_query_tf32.cu": [
+        ("constexpr int T_STAGES = 4;", "constexpr int T_STAGES = 2;")]},
+    # A's fragments passed unsplit (hi the fp32 bits, lo 0: wrong results,
+    # what the split's integer and float work costs)
+    "query_tf32_no_split": {"mlp_query_tf32.cu": [(
+        """      split3(v0.x, ah[s][0], al[s][0]);
+      split3(v1.x, ah[s][1], al[s][1]);
+      split3(v0.y, ah[s][2], al[s][2]);
+      split3(v1.y, ah[s][3], al[s][3]);""",
+        """      ah[s][0] = __float_as_uint(v0.x);
+      ah[s][1] = __float_as_uint(v1.x);
+      ah[s][2] = __float_as_uint(v0.y);
+      ah[s][3] = __float_as_uint(v1.y);
+      al[s][0] = al[s][1] = al[s][2] = al[s][3] = 0u;""")]},
+    "query_tf32_one_pass": {"mlp_query_tf32.cu": [
+        (TF32_PASSES,
+         "      wgmma_tf32<NW>(part, ah[s], desc_kmajor(bh, s), s);")]},
 })
 # The libraries an ablation is timed on where not every library its
 # patches reach: p128's tile does not fit the training kernels' shared
@@ -613,6 +704,37 @@ def main(argv) -> int:
         return (f", bit-identical to as_built: "
                 f"{all(torch.equal(a, c) for a, c in zip(out, want))}")
 
+    def legacy_wgmma(tree):
+        """Another checkout's #1a bf16 library from before its sigmoid
+        residuals took a width (no bf16_side argument): bound with its own
+        interface, fp32 residuals."""
+        with open(os.path.join(tree, "mlp_query_wgmma.cu")) as f:
+            if "bf16_side" in f.read():
+                return None
+        import ctypes
+
+        def launch(x_T, w_pack, b_pack, cfg, n, f32_residuals):
+            lib = build.load("mlp_query_wgmma")
+            vp = ctypes.c_void_p
+            lib.emap_mlp_query_wgmma.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp,
+                ctypes.c_float, ctypes.c_int, vp]
+            plan = tq.query_wgmma_plan(cfg, n)
+            udf = torch.empty(n, device="cuda")
+            grad = torch.empty(8, n, device="cuda")
+            wb = torch.empty(plan["wb"], device="cuda", dtype=torch.bfloat16)
+            side = torch.empty(plan["side"], device="cuda")
+            err = lib.emap_mlp_query_wgmma(
+                x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(),
+                udf.data_ptr(), grad.data_ptr(), wb.data_ptr(),
+                side.data_ptr(), n, tq.kernel_layout(cfg).ctypes.data,
+                float(cfg.scale), 1, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"mlp_query_wgmma: CUDA error {err}")
+            return udf, grad, {"wb": wb.view(256, -1), "side": side}
+        return launch
+
+    launch_wgmma = tq._launch_wgmma
     with tempfile.TemporaryDirectory() as root:
         trees = {name: patched_tree(root, name) for name in names}
         trees.update(other)
@@ -630,14 +752,42 @@ def main(argv) -> int:
             for name, tree in order if rnd == 0 else order[::-1]:
                 build.CSRC = tree
                 build._loaded.clear()
+                tq._launch_wgmma = legacy_wgmma(tree) or launch_wgmma
                 libs = libraries(name, tree)
                 if "mlp_query" in libs:
-                    u, gr = tq.value_and_grad(x, w, b, cfg)
-                    fwd_ms = ms(lambda: tq.value_and_grad(x, w, b, cfg))
-                    print(f"round {rnd} {name:20s} #1a {fwd_ms:8.3f} ms  max "
-                          f"rel err udf {rel(u, u_p):.2e} grad "
+                    u, gr = tq.value_and_grad_mma_sync(x, w, b, cfg)
+                    fwd_ms = ms(lambda: tq.value_and_grad_mma_sync(x, w, b,
+                                                                   cfg))
+                    print(f"round {rnd} {name:20s} #1a mma.sync {fwd_ms:8.3f} "
+                          f"ms  max rel err udf {rel(u, u_p):.2e} grad "
                           f"{rel(gr, g_p):.2e}{same(name, '1a', (u, gr))}",
                           flush=True)
+                if "mlp_query_tf32" in libs:
+                    for f32 in (True, False):
+                        def run(f32=f32):
+                            return tq.value_and_grad_tf32_parts(
+                                x, w, b, cfg, f32_residuals=f32)
+                        parts = run()
+                        res = (None if f32 else tq.side_residuals(
+                            parts["side"], cfg, n))
+                        up, gp = (u_p, g_p) if f32 else \
+                            tq.value_and_grad_plain(x, w, b, cfg,
+                                                    residuals=res)
+                        out = (parts["udf"], parts["grad"])
+                        worst = max(rel(out[0], up), rel(out[1], gp))
+                        mean = max(float((a - c).abs().mean()
+                                         / (c.abs().max() + 1e-30))
+                                   for a, c in zip(out, (up, gp)))
+                        fwd_ms = ms(run)
+                        lp = launch_ms(run)
+                        tag = "fp32" if f32 else "bf16"
+                        print(f"round {rnd} {name:20s} #1 3xTF32 wgmma, {tag} "
+                              f"residuals {fwd_ms:8.3f} ms (pack "
+                              f"{lp.get('pack_tf32_kernel', 0.0):.3f}, query "
+                              f"{lp.get('query_tf32_kernel', 0.0):.3f})  max "
+                              f"rel err udf/grad {worst:.2e}, mean "
+                              f"{mean:.2e}{same(name, f'1 tf32 {tag}', out)}",
+                              flush=True)
                 if "mlp_query_wgmma" in libs:
                     out = tq.value_and_grad(x, w, b, bf16)
                     worst = max(rel(a, c) for a, c in zip(out, q_bf))

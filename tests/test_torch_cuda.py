@@ -162,6 +162,14 @@ def test_cuda_train_query_grads_match_autograd(cuda):
         assert max_rel(gk, ga) < 3e-4
 
 
+# The extraction's bf16 sigmoid residuals against the plain version's:
+# two fp32-accurate computations of a sigmoid an ulp apart round at some
+# points to neighbouring bf16 values, which moves the gradient by up to
+# 5.3e-4 of the block's largest (H100, ABC width, 262,144 points; 5.8e-4
+# on the CPU at 32,768). Held to about 4x that.
+RESIDUAL_FLIP_RTOL = 2e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["abc", "replica"])
 @pytest.mark.parametrize("n", [262_144, 300_032])
@@ -169,8 +177,12 @@ def test_cuda_extraction_kernels_match_plain(cuda, n, name):
     """At ABC width and at Replica.conf's (multires 6): the value kernel,
     and the value-and-gradient kernel through the extraction's slicing
     wrapper (one launch per SLICE_CAP points), against their plain
-    versions, max rel 1e-4 per output. Above the cap the slices concatenate
-    to the unsliced launch bit for bit (each point is computed alone)."""
+    versions, max rel 1e-4 per output; with the extraction's bf16 sigmoid
+    residuals (f32_residuals=False) on both sides the gradient is held to
+    RESIDUAL_FLIP_RTOL (test_cuda_tf32_query_matches_plain holds it to 1e-4
+    given the kernel's own residuals). Above the cap the slices
+    concatenate to the unsliced launch bit for bit (each point is computed
+    alone)."""
     cfg = CFGS[name]
     x, _, _ = points(n, cuda)
     w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
@@ -178,30 +190,36 @@ def test_cuda_extraction_kernels_match_plain(cuda, n, name):
     before = (tq.value.launches, tq.value_and_grad.launches)
     u = tq.value(x, w, b, cfg)
     us, gs = tq.value_and_grad_sliced(x, w, b, cfg)
+    u32, g32 = tq.value_and_grad_sliced(x, w, b, cfg, f32_residuals=True)
     torch.cuda.synchronize()
     slices = -(-n // tq.SLICE_CAP)
     assert (tq.value.launches, tq.value_and_grad.launches) == (
-        before[0] + 1, before[1] + slices)
+        before[0] + 1, before[1] + 2 * slices)
     up = tq.value_plain(x, w, b, cfg)
-    uvp, gvp = tq.value_and_grad_plain(x, w, b, cfg)
-    for got, want in ((u, up), (us, uvp), (gs, gvp)):
+    uvp, gvp = tq.value_and_grad_plain(x, w, b, cfg, f32_residuals=False)
+    uvp32, gvp32 = tq.value_and_grad_plain(x, w, b, cfg)
+    for got, want, tol in ((u, up, 1e-4), (us, uvp, 1e-4),
+                           (gs, gvp, RESIDUAL_FLIP_RTOL), (u32, uvp32, 1e-4),
+                           (g32, gvp32, 1e-4)):
         assert bool(torch.isfinite(got).all())
-        assert max_rel(got, want) < 1e-4
+        assert max_rel(got, want) < tol
     if slices > 1:
-        uu, gu = tq.value_and_grad(x, w, b, cfg)
+        uu, gu = tq.value_and_grad(x, w, b, cfg, f32_residuals=False)
         assert torch.equal(us, uu) and torch.equal(gs, gu)
 
 
 @pytest.mark.cuda
 def test_cuda_point_queries_pad_to_the_tile(cuda):
     """query_value / query_value_and_grad on (M, 3) points with M not a
-    multiple of the 64-point tile, against the plain field and autograd."""
+    multiple of the 64-point tile, against the plain field and autograd
+    (fp32 residuals, the autograd field's)."""
     cfg = CFGS["toy-abs"]
     params = net(cfg, cuda)
     pts = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, (1000, 3)),
                           dtype=torch.float32, device=cuda)
     u = tq.query_value(params, pts, cfg)
-    uv, g = tq.query_value_and_grad(params, pts, cfg, cap=256)
+    uv, g = tq.query_value_and_grad(params, pts, cfg, cap=256,
+                                    f32_residuals=True)
     ua, ga = tudf.udf_value_and_gradient(params, pts, cfg)
     assert u.shape == uv.shape == (1000,) and g.shape == (1000, 3)
     assert max_rel(u, ua.detach()) < 1e-4 and max_rel(uv, ua.detach()) < 1e-4
@@ -319,15 +337,16 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
         assert max_rel(g, wt) < BF16_RTOL
     xs, _, _ = points(300_032, cuda)
     us, gs = tq.value_and_grad_sliced(xs, w, b, cfg)
-    uu, gu = tq.value_and_grad(xs, w, b, cfg)
+    uu, gu = tq.value_and_grad(xs, w, b, cfg, f32_residuals=False)
     assert torch.equal(us, uu) and torch.equal(gs, gu)
-    up, gp = tq.value_and_grad_plain(xs, w, b, cfg)
+    up, gp = tq.value_and_grad_plain(xs, w, b, cfg, f32_residuals=False)
     assert max_rel(us, up) < BF16_RTOL and max_rel(gs, gp) < BF16_RTOL
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
-                                 "mlp_train_wgmma", "mlp_query_wgmma"])
+                                 "mlp_train_wgmma", "mlp_query_wgmma",
+                                 "mlp_query_tf32"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     """Each kernel library's SASS holds tensor-core instructions: HMMA
     (mma.sync), or HGMMA (wgmma) in the wgmma libraries."""
@@ -340,7 +359,8 @@ def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", build.lib_path(lib)],
                           capture_output=True, text=True, check=True).stdout
-    assert sass.count("HGMMA" if lib.endswith("_wgmma") else "HMMA") > 0
+    assert sass.count("HGMMA" if lib.endswith(("_wgmma", "_tf32"))
+                      else "HMMA") > 0
 
 
 # The wgmma kernels (#2 at the bf16 pair) against train_bwd_plain at that
@@ -478,7 +498,8 @@ def test_cuda_wgmma_query_through_slices(cuda, name):
     """value_and_grad_sliced at the bf16 tier over slices of 4,096 points
     (10,176 points: slices of 4,096, 4,096 and 1,984, the last a ragged
     block): one launch a slice, the concatenation bit-identical to one
-    launch over all points, and held against the plain version."""
+    launch over all points with the same bf16 residuals, and held against
+    the plain version with them."""
     cfg = dataclasses.replace(CFGS[name], precision="default")
     x, _, _ = points(10_176, cuda)
     w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
@@ -486,10 +507,11 @@ def test_cuda_wgmma_query_through_slices(cuda, name):
     before = tq.value_and_grad.tier_launches["bf16"]
     sliced = tq.value_and_grad_sliced(x, w, b, cfg, cap=4096)
     assert tq.value_and_grad.tier_launches["bf16"] == before + 3
-    whole = tq.value_and_grad(x, w, b, cfg)
+    whole = tq.value_and_grad(x, w, b, cfg, f32_residuals=False)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(sliced, whole))
-    _query_held(sliced, tq.value_and_grad_plain(x, w, b, cfg),
+    _query_held(sliced, tq.value_and_grad_plain(x, w, b, cfg,
+                                                f32_residuals=False),
                 tq.value_and_grad_plain(
                     x, w, b, dataclasses.replace(cfg, precision="high")))
 
@@ -549,6 +571,154 @@ def test_cuda_wgmma_query_pack_plan_and_twin(cuda, name):
     _query_held(twin, tq.value_and_grad_plain(x, w, b, cfg),
                 tq.value_and_grad_plain(
                     x, w, b, dataclasses.replace(cfg, precision="high")))
+
+
+# The 3xTF32 query kernels (csrc/mlp_query_tf32.cu) against
+# value_and_grad_plain at "high": fp32-accurate products summed in another
+# order, 1e-4 of each block's largest (chip_smoke.py's KERNEL_RTOL), the
+# gradient up to the abs head's sign where y0 lies within fp32 roundoff of
+# the surface. With bf16 residuals the plain version multiplies by the
+# kernel's own (side_residuals): two fp32-accurate computations round a
+# sigmoid an ulp apart to neighbouring bf16 values at some points, which
+# moves their gradient by up to 5.8e-4 of the block's largest (measured on
+# the CPU at ABC width, 32,768 points); each residual is held to one bf16
+# rounding of the plain sigmoid. sigmoid(100 z) carries z's fp32 roundoff a
+# hundredfold: the kernel's fp32 residuals lie up to 1.7e-5 from the plain
+# ones (H100, ABC width), held to RESIDUAL_ATOL.
+TF32_RTOL = 1e-4
+RESIDUAL_ATOL = 1e-4
+
+
+def _tf32_held(got, want):
+    (u, g), (uw, gw) = got, want
+    flip = (g + gw).abs().amax(0) < (g - gw).abs().amax(0)
+    assert not bool((uw[flip] > TF32_RTOL * uw.max()).any())
+    g = torch.where(flip, -g, g)
+    for a, c in ((u, uw), (g, gw)):
+        assert bool(torch.isfinite(a).all())
+        assert max_rel(a, c) < TF32_RTOL
+
+
+def _residuals_held(side, x, w, b, cfg, f32_residuals):
+    """The kernel's residuals, decoded from its side scratch: within fp32
+    roundoff of the plain sigmoids, or (bf16) each the bf16 rounding of a
+    value within fp32 roundoff of the plain sigmoid. Returns them."""
+    n = x.shape[1]
+    got = tq.side_residuals(side, cfg, n)
+    want = tq.plain_residuals(x, w, b, cfg)
+    assert side.dtype == (torch.float32 if f32_residuals else torch.bfloat16)
+    for r, s in zip(got, want):
+        tol = 0.0 if f32_residuals else 2.0 ** -8
+        assert bool(((r - s).abs() <= tol * s.abs() + RESIDUAL_ATOL).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32_residuals", [True, False])
+@pytest.mark.parametrize("n", [116_736, 4160])
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_tf32_query_matches_plain(cuda, name, n, f32_residuals):
+    """value_and_grad at "high" launches the 3xTF32 kernels: against
+    value_and_grad_plain with the same residuals (_tf32_held), at the
+    training step's N = 116,736 points and at n = 4160 (65 blocks of 64),
+    ABC width (d0p 64: lin0's reverse product m64n64k8), Replica's (d0p 40:
+    m64n40k8) and the toy nets; two launches bit-identical; one launch
+    counted a call under "3xtf32"; rows 3-7 of grad zero."""
+    cfg = dataclasses.replace(CFGS[name], precision="high")
+    x, _, _ = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value_and_grad.tier_launches)
+    runs = [tq.value_and_grad(x, w, b, cfg, f32_residuals=f32_residuals)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tq.value_and_grad.tier_launches == dict(
+        before, **{"3xtf32": before["3xtf32"] + 2})
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    assert runs[0][0].shape == (n,) and runs[0][1].shape == (8, n)
+    assert not bool(runs[0][1][3:].any())
+    parts = tq.value_and_grad_tf32_parts(x, w, b, cfg,
+                                         f32_residuals=f32_residuals)
+    assert torch.equal(parts["udf"], runs[0][0])
+    assert torch.equal(parts["grad"], runs[0][1])
+    res = _residuals_held(parts["side"], x, w, b, cfg, f32_residuals)
+    _tf32_held(runs[0], tq.value_and_grad_plain(
+        x, w, b, cfg, residuals=None if f32_residuals else res))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_tf32_query_through_slices(cuda, name):
+    """value_and_grad_sliced at "high" (bf16 residuals, the extraction's)
+    over slices of 4,096 points (10,176 points: 4,096, 4,096 and 1,984):
+    one launch a slice, the concatenation bit-identical to one launch over
+    all points; and at "highest", whose residuals stay fp32, held against
+    the plain version."""
+    cfg = dataclasses.replace(CFGS[name], precision="high")
+    x, _, _ = points(10_176, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = tq.value_and_grad.tier_launches["3xtf32"]
+    sliced = tq.value_and_grad_sliced(x, w, b, cfg, cap=4096)
+    assert tq.value_and_grad.tier_launches["3xtf32"] == before + 3
+    whole = tq.value_and_grad(x, w, b, cfg, f32_residuals=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(sliced, whole))
+    highest = dataclasses.replace(cfg, precision="highest")
+    _tf32_held(tq.value_and_grad_sliced(x, w, b, highest, cap=4096),
+               tq.value_and_grad_plain(x, w, b, highest))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_tf32_query_in_a_cuda_graph(cuda, name):
+    """value_and_grad at "high" captured in a CUDA graph (its tensor map a
+    __grid_constant__ parameter, its scratch from the graph's pool): the
+    capture counts one launch, and replays on new points written into the
+    captured input equal eager launches bit for bit."""
+    cfg = dataclasses.replace(CFGS[name], precision="high")
+    x, _, _ = points(8192, cuda)
+    x2, _, _ = points(8192, cuda, seed=5)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    want = [tq.value_and_grad(p, w, b, cfg) for p in (x, x2)]
+    static = x.clone()
+    tq.value_and_grad(static, w, b, cfg)  # warm-up: the library loaded
+    torch.cuda.synchronize()
+    before = tq.value_and_grad.tier_launches["3xtf32"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.value_and_grad(static, w, b, cfg)
+    assert tq.value_and_grad.tier_launches["3xtf32"] == before + 1
+    for p, (u, g) in zip((x, x2), want):
+        static.copy_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], u) and torch.equal(out[1], g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_tf32_query_pack_plan_and_twin(cuda, name):
+    """The 3xTF32 prologue equals pack_weights_tf32 bit for bit; the
+    library reckons a launch's scratch and shared memory as
+    query_tf32_plan; and the mma.sync twin (csrc/mlp_query.cu, timed beside
+    it) still matches the plain version. Neither counts a launch."""
+    cfg = dataclasses.replace(CFGS[name], precision="high")
+    x, _, _ = points(4160, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value_and_grad.tier_launches)
+    parts = tq.value_and_grad_tf32_parts(x, w, b, cfg)
+    twin = tq.value_and_grad_mma_sync(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert tq.value_and_grad.tier_launches == before
+    assert torch.equal(parts["pack"], tq.pack_weights_tf32(w, cfg))
+    plan = tq.query_tf32_plan(cfg, 4160)
+    assert tq.query_tf32_sizes(cfg, 4160) == {
+        "pack": plan["pack"], "side": plan["side"], "smem": plan["smem"],
+        "blocks": plan["blocks"]}
+    _tf32_held(twin, tq.value_and_grad_plain(x, w, b, cfg))
 
 
 def _train_conf(tmp_path, upsampling_type):

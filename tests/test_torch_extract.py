@@ -9,6 +9,7 @@ side: fitting, merging, parametric edges, PLY bytes and the threshold
 selector on identical numpy inputs, compared exactly.
 """
 
+import dataclasses
 import json
 import os
 
@@ -58,8 +59,11 @@ def circle_udf(p):
 
 @pytest.fixture(scope="module")
 def circle():
-    """(JAX cfg at "highest", port cfg, JAX params, port params): the toy
-    net regressed onto the UDF of a circle of radius 0.5 in z = 0."""
+    """(JAX cfg at "highest", port cfg at the same tier, JAX params, port
+    params): the toy net regressed onto the UDF of a circle of radius 0.5
+    in z = 0. The same tier on both sides: fp32 sigmoid residuals in the
+    extraction query (at "high" it rounds them to bf16, as the JAX
+    package's does)."""
     from emap_tpu.train.optim import adam_init, adam_update
 
     jcfg = judf.UDFConfig(precision="highest", **NET)
@@ -90,7 +94,7 @@ def circle():
         params, opt, loss = step(params, opt, k)
     assert float(loss) < 5e-4
     jp = jax.tree.map(np.asarray, params)
-    tcfg = tudf.UDFConfig(**NET)
+    tcfg = tudf.UDFConfig(precision=jcfg.precision, **NET)
     tp = params_from_numpy({"udf": jp, **ZEROS}, tcfg, device="cpu")["udf"]
     return jcfg, tcfg, jax.tree.map(jnp.asarray, jp), tp
 
@@ -132,9 +136,12 @@ def test_sliced_value_and_grad_matches_pallas(cap):
     """The extraction's value + spatial gradient through the slicing wrapper
     (one launch per `cap` points on the card) against
     pallas_udf_value_and_grad in interpret mode: udf to 1e-5 / 1e-6,
-    gradient to 2e-4 / 2e-5 (tests/test_kernels.py). The slices
-    concatenate to the unsliced result."""
+    gradient to 2e-4 / 2e-5 (tests/test_kernels.py), both at "highest"
+    (fp32 sigmoid residuals: at "high" the extraction query rounds them to
+    bf16 as the JAX package's does). The slices concatenate to the unsliced
+    result."""
     jcfg, tcfg, jp, tp = random_net(1)
+    tcfg = dataclasses.replace(tcfg, precision=jcfg.precision)
     pts = np.random.default_rng(1).uniform(-0.9, 0.9, (300, 3)).astype(
         np.float32)
     u, g = tq.query_value_and_grad(tp, torch.as_tensor(pts), tcfg, cap=cap)

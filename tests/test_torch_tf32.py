@@ -38,16 +38,10 @@ N = 256  # two 128-point tiles of the interpret-mode Pallas kernels
 RTOL = 1e-5
 
 
-def tf32_rna(a: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on an fp32 tensor: round the magnitude to 10
-    mantissa bits, ties away from zero, on the int32 view."""
-    bits = a.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split3(a: torch.Tensor):
-    hi = tf32_rna(a)
-    return hi, tf32_rna(a - hi)
+# cvt.rna.tf32.f32 on an fp32 tensor and the kernels' split3, as the
+# 3xTF32 pack's plain version computes them
+tf32_rna = tq.tf32_rna
+split3 = tq.split_tf32
 
 
 def matmul_3xtf32(matmul):
