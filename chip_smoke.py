@@ -8,8 +8,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
      print each kernel's ptxas registers and spills, and count the
      tensor-core instructions in every kernel library's SASS: HGMMA
-     (wgmma; HGMMA.*.TF32 in mlp_query_tf32) in mlp_query_tf32,
-     mlp_query_wgmma and mlp_train_wgmma, HMMA (mma.sync) in the others;
+     (wgmma; HGMMA.*.TF32 in mlp_query_tf32 and mlp_value_tf32) in
+     mlp_query_tf32, mlp_value_tf32, mlp_query_wgmma and mlp_train_wgmma,
+     HMMA (mma.sync) in the others;
   3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
      against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
@@ -33,14 +34,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
      prologue's pre-split pack held bit for bit, and whose chain kernel is
      also held with the extraction's bf16 sigmoid residuals (against the
      plain version given the kernel's own residuals, and those within one
-     bf16 rounding of the plain sigmoids); #2 at the (bf16, bf16) pair runs
-     on those of
+     bf16 rounding of the plain sigmoids); #3 at the 3xTF32 tier runs on
+     csrc/mlp_value_tf32.cu (wgmma .tf32 fed by TMA), whose two launches
+     (prologue, value kernel) get rows of their own likewise at both grid
+     shapes, the prologue's forward-only pack held bit for bit; #2 at the
+     (bf16, bf16) pair runs on those of
      csrc/mlp_train_wgmma.cu, whose four launches (prologue, per-point,
      GEMM, reduce) get rows of their own likewise, with the GEMM's
      library_ms (torch.bmm on the same bf16 factors); for each, the
      mma.sync design it replaced (csrc/mlp_query.cu at the kernel's tier,
-     csrc/mlp_train.cu) and the wgmma kernels are timed in turns (old, new,
-     new, old), and the wgmma kernels must be the faster;
+     csrc/mlp_train.cu, csrc/mlp_value.cu at 3xTF32) and the wgmma kernels
+     are timed in turns (old, new, new, old), and the wgmma kernels must be
+     the faster;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it (its tiers: the training field query and the up-sampler at the bf16
      tier "default", extraction at "high"), train END_ITER steps at full
@@ -101,17 +106,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
      the conf through the CLI on a PidiNet cube scene (a warm-up step, a
      capture and replays at chain 5) with one validation, its launches
      reckoned and its first step held against plain autograd as phase 4's
-     is, then the conf's extraction device stages (256^3 grid, the
-     6-threshold menu, point shift, line directions) on that field, their
-     launches reckoned from their trace;
+     is, then the grid masks of the conf's 256^3 grid at its 6-threshold
+     menu against the plain version's, as phase 6 holds them, and the conf's
+     extraction device stages (256^3 grid, the 6-threshold menu, point
+     shift, line directions) on that field, their launches reckoned from
+     their trace;
  11. `emap_tpu_torch.cli.main(... --mode extract_edge)` with
      confs/DTU.conf's edge_extraction block unchanged (256^3 grid, 4
      launches of the grid value kernel a pass; 6 thresholds; iters 1; one
      fit a threshold; the visibility filter over the scene's 24 PidiNet
      frames) on a cube field regressed with a loss relative to the
      distance (DTU_FIXTURE_REL), whose valley along the edges the menu's
-     0.005 threshold needs: the launches reckoned from the
-     trace, the stage times, the peak device memory, the primitives the
+     0.005 threshold needs: its grid masks held as phase 6 holds them,
+     the launches reckoned from the trace, the stage times, the peak
+     device memory, the primitives the
      filter kept and dropped, and the edges scored against the cube's as
      in phase 7, F@20mm at least F20_MIN;
  12. the multi-device path (emap_tpu_torch/parallel/mesh.py): a NCCL
@@ -142,8 +150,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      shapes and dtypes; and cv2 absent from sys.modules.
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it (a launch row of the wgmma kernels, named
-"mlp_value_and_grad/bf16:<launch>" or "mlp_train_bwd/bf16:<launch>", its
-wrapper row's): the main path (phases 4 and 6), a phase 9 run, or
+"mlp_value_and_grad/bf16:<launch>", "mlp_value/3xtf32:<launch>" or
+"mlp_train_bwd/bf16:<launch>", its wrapper row's): the main path (phases 4
+and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
 and ".../256^3"; phase 10's rows of tiers no path of the conf runs are
 printed and held, not listed).
@@ -525,9 +534,10 @@ def same_bits(name, kern, args, ucfg) -> None:
 
 
 # The tensor-core instruction each library must hold: wgmma (HGMMA) in the
-# Hopper libraries of #1a's bf16 tier and #2's bf16 pair, mma.sync (HMMA)
-# in the others.
-WGMMA_LIBS = ("mlp_query_tf32", "mlp_query_wgmma", "mlp_train_wgmma")
+# Hopper libraries (#1 at both tiers, #2's bf16 pair, #3 at 3xTF32),
+# mma.sync (HMMA) in the others.
+WGMMA_LIBS = ("mlp_query_tf32", "mlp_query_wgmma", "mlp_train_wgmma",
+              "mlp_value_tf32")
 
 
 def tensor_core_sass(names) -> None:
@@ -618,9 +628,11 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
 
     def value_row(points, cfg):
         count = points.shape[1]
+        tf32 = mlp_query.kernel_tier(cfg.precision) == 0
         return kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
                           value_blocks, (points, w, b), cfg,
-                          "emap_tpu_torch/csrc/mlp_value.cu",
+                          "emap_tpu_torch/csrc/mlp_value_tf32.cu" if tf32
+                          else "emap_tpu_torch/csrc/mlp_value.cu",
                           "emap_tpu/kernels/mlp_query.py:328",
                           f32 * (8 * count + count) + pack_bytes,
                           (mlp_query.value_flops(cfg) * count, 0))
@@ -661,6 +673,8 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
             same_bits("mlp_value", lambda *a: (mlp_query.value(*a),),
                       (grid_x, w, b), cfg)
             rows.append(value_row(grid_x, cfg))
+            if mlp_query.kernel_tier(cfg.precision) == 0:
+                rows += value_tf32_rows((grid_x, w, b), cfg, rows[-1])
     return rows
 
 
@@ -679,20 +693,25 @@ def launch_times(fn, reps: int, names) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
-        for name in names:
-            if name in e.key:
-                total[name] += us
-                count[name] += e.count
+    # a window in which the profiler recorded none of the launches is
+    # taken again (seen on an H100 with launches of ~60 ms), up to 3 times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0.0)
+            for name in names:
+                if name in e.key:
+                    total[name] += us
+                    count[name] += e.count
+        if all(count.values()):
+            break
     check(all(count.values()), f"the profiler recorded no launch of "
           f"{[k for k, v in count.items() if not v]}")
     return {k: total[k] / (1e3 * count[k]) for k in names}
@@ -885,7 +904,8 @@ def in_turns(whole, old_name, old_fn, new_fn) -> None:
     outlives it, so every timed call takes its scratch (gigabytes of side
     arrays) from the allocator's cache, not from a fresh cudaMalloc."""
     turns = {"old": [], "new": []}
-    fns = {"old": lambda: old_fn() and None, "new": lambda: new_fn() and None}
+    fns = {"old": lambda: (old_fn(), None)[1],
+           "new": lambda: (new_fn(), None)[1]}
     for name in ("old", "new", "new", "old"):
         turns[name].append(time_ms(fns[name], 5)[0])
     print(f"kernel {whole['name']}: in turns (old, new, new, old): "
@@ -1040,6 +1060,62 @@ def query_tf32_rows(args, ucfg, whole: dict) -> list:
     print(f"kernel {whole['name']}: max rel err against the plain version "
           f"{errors(old, want)[1]:.3e} (mma.sync), "
           f"{errors(got, want)[1]:.3e} (wgmma)", flush=True)
+    return rows
+
+
+VALUE_TF32_LAUNCHES = {  # kernel name in the profile: launch
+    "pack_tf32_kernel": "pack", "value_tf32_kernel": "value"}
+
+
+def value_tf32_rows(args, ucfg, whole: dict) -> list:
+    """#3 at the 3xTF32 tier on csrc/mlp_value_tf32.cu, launch by launch,
+    on the inputs of `whole` (their row as one function): each launch's
+    device time (torch.profiler), its bound from value_tf32_launch_costs
+    (three TF32 passes) and its output against the plain version of that
+    launch on the same inputs: the prologue against pack_weights_tf32's
+    forward-only pack bit for bit, the value kernel's udf against
+    value_plain (KERNEL_RTOL). Then csrc/mlp_value.cu's mma.sync design and
+    the wgmma kernels timed in turns (old, new, new, old)."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query
+
+    x, w = args[:2]
+    n = x.shape[1]
+    parts = mlp_query.value_tf32_parts(*args, ucfg)
+    torch.cuda.synchronize()
+    costs = mlp_query.value_tf32_launch_costs(ucfg, n)
+    times = launch_times(lambda: mlp_query.value_tf32_parts(*args, ucfg), 3,
+                         tuple(VALUE_TF32_LAUNCHES))
+    plain_ms = {
+        "pack": time_ms(lambda: mlp_query.pack_weights_tf32(
+            w, ucfg, transposed=False), 2)[0],
+        "value": time_ms(lambda: mlp_query.value_plain(*args, ucfg), 2)[0],
+    }
+    pack = mlp_query.pack_weights_tf32(w, ucfg, transposed=False)
+    check(torch.equal(parts["pack"], pack), f"{whole['name']}: the pack "
+          f"differs from pack_weights_tf32's forward blocks")
+    want = {"udf": mlp_query.value_plain(*args, ucfg)}
+    held = {
+        "pack": ({"pack": parts["pack"]}, {"pack": pack}, 0.0),
+        "value": ({"udf": parts["udf"]}, want, KERNEL_RTOL),
+    }
+    rows = launch_rows(whole, VALUE_TF32_LAUNCHES, times, plain_ms, held,
+                       costs, peak=TF32_PEAK / TC_PASSES)
+    flops, ms = costs["value"]["flops"], times["value_tf32_kernel"]
+    print(f"kernel {whole['name']}: value kernel at "
+          f"{flops / (ms * 1e9):.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP; the "
+          f"3xTF32 bound {TF32_PEAK / TC_PASSES / 1e12:.0f} TFLOP/s), weight "
+          f"entries streamed from L2 at "
+          f"{costs['value']['stream_bytes'] / (ms * 1e6):.0f} GB/s",
+          flush=True)
+    in_turns(whole, "mma.sync 3xTF32 (csrc/mlp_value.cu)",
+             lambda: mlp_query.value_mma_sync(*args, ucfg),
+             lambda: mlp_query.value_tf32_parts(*args, ucfg))
+    old = {"udf": mlp_query.value_mma_sync(*args, ucfg)}
+    print(f"kernel {whole['name']}: max rel err against the plain version "
+          f"{errors(old, want)[1]:.3e} (mma.sync), "
+          f"{errors({'udf': parts['udf']}, want)[1]:.3e} (wgmma)", flush=True)
     return rows
 
 
@@ -1532,11 +1608,16 @@ def mask_disagreement(params, ucfg, res: int, thresholds) -> None:
 
     count = res ** 3
     w, b = (t.contiguous() for t in mlp_query.pack_weights(params, ucfg))
-    x = torch.zeros(8, count, device="cuda")
-    x[:3] = grid_points(0, count, res, "cuda").T
-    got = torch.clamp(mlp_query.value(x, w, b, ucfg), min=0.0)
-    want = torch.clamp(mlp_query.value_plain(x, w, b, ucfg), min=0.0)
-    diffs = {t: int(((got <= t) != (want <= t)).sum()) for t in thresholds}
+    diffs = dict.fromkeys(thresholds, 0)
+    # a GRID_CHUNK_N of the grid at a time, as the extraction launches it
+    for start in range(0, count, GRID_CHUNK_N):
+        m = min(GRID_CHUNK_N, count - start)
+        x = torch.zeros(8, m, device="cuda")
+        x[:3] = grid_points(start, m, res, "cuda").T
+        got = torch.clamp(mlp_query.value(x, w, b, ucfg), min=0.0)
+        want = torch.clamp(mlp_query.value_plain(x, w, b, ucfg), min=0.0)
+        for t in thresholds:
+            diffs[t] += int(((got <= t) != (want <= t)).sum())
     print(f"extract: grid points of {count:,} whose mask differs between "
           f"the grid value kernel and its plain version, by threshold: "
           f"{diffs} (bar {MASK_DIFF_MAX * count:.0f})", flush=True)
@@ -2071,6 +2152,8 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
               for k, layer in runner.state.params["udf"].items()}
     del runner
     torch.cuda.empty_cache()
+    mask_disagreement(params, rucfg, ee.get_int("resolution"),
+                      [float(t) for t in ee.get_list("auto_threshold")])
     trace = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2098,13 +2181,14 @@ def replica_phase(tmp: str, data_dir: str, n: int, smi: str) -> list:
                                     wall, smi)
     value_key = f"mlp_value/{tier_name('mlp_value', rucfg)}"
     row_of[f"{value_key}/multires6"]["launches"] = launches[value_key]
+    part_launches(rows)
     row = renamed(sliced_row(rucfg, linedir_n), "multires6")
     row["launches"] = launches[
         f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', rucfg)}"]
     return [r for r in rows if r["launches"]] + [row]
 
 
-def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
+def dtu_phase(tmp: str, data_dir: str, ucfg, value_rows: list,
               smi: str) -> list:
     """Phase 11: `--mode extract_edge` with confs/DTU.conf's edge_extraction
     block unchanged (256^3 grid: 4 launches of the grid value kernel a
@@ -2115,9 +2199,10 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
     the trace, the stage times, the peak device memory, the primitives the
     filter kept and dropped; then the edges scored against the cube's as
     phase 7 scores them, F@20mm at least F20_MIN. Returns the grid value
-    kernel's row at one GRID_CHUNK (from phase 3) and the sliced
-    value-and-gradient query's row at this run's largest line-direction
-    call, with this run's launches."""
+    kernel's rows at one GRID_CHUNK (`value_rows` from phase 3: the
+    function's and its launches') and the sliced value-and-gradient query's
+    row at this run's largest line-direction call, with this run's
+    launches."""
     import torch
 
     from emap_tpu_torch import cli, config
@@ -2140,6 +2225,8 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
                 checkpoint_payload(trainer.state, 0.01))
     del trainer
     torch.cuda.empty_cache()
+    mask_disagreement(params, ucfg, res,
+                      [float(t) for t in ee.get_list("auto_threshold")])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2168,7 +2255,8 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
     value_key = f"mlp_value/{tier_name('mlp_value', ucfg)}"
     check(launches[value_key] >= per_pass * len(passes), "fewer grid "
           "launches than passes x chunks")
-    value_row["launches"] = launches[value_key]
+    value_rows[0]["launches"] = launches[value_key]
+    part_launches(value_rows)
     with open(os.path.join(runner.base_exp_dir, "results",
                            "parametric_edges.json")) as f:
         edges = json.load(f)
@@ -2187,7 +2275,7 @@ def dtu_phase(tmp: str, data_dir: str, ucfg, value_row: dict,
     row = renamed(sliced_row(ucfg, linedir_n), "256^3")
     row["launches"] = launches[
         f"mlp_value_and_grad/{tier_name('mlp_value_and_grad', ucfg)}"]
-    return [renamed(value_row, "256^3"), row]
+    return [renamed(r, "256^3") for r in value_rows] + [row]
 
 
 def nccl_version() -> str:
@@ -2633,7 +2721,9 @@ def main() -> int:
     n = abc.get_int("train.batch_size") * rcfg.total_samples
     rows = kernel_phase(ucfg, n, (GRID_N, GRID_CHUNK_N))
     # the 256^3 chunk rows wait for phase 11, which launches the 3xTF32 one
-    chunk_rows = {r["tier"]: r for r in rows if r["n"] == GRID_CHUNK_N}
+    # (its row and its launch rows)
+    chunk_rows = [r for r in rows if r["n"] == GRID_CHUNK_N
+                  and r["tier"] == "3xtf32"]
     rows = [r for r in rows if r["n"] != GRID_CHUNK_N]
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2720,8 +2810,7 @@ def main() -> int:
         part_launches(rows)
         data_pidinet = pidinet_scene(tmp)
         rows += replica_phase(tmp, data_pidinet, n, smi)
-        rows += dtu_phase(tmp, data_pidinet, ucfg, chunk_rows["3xtf32"],
-                          smi)
+        rows += dtu_phase(tmp, data_pidinet, ucfg, chunk_rows, smi)
         parallel_phase(runner, conf_path, tmp, smi)
         public_functions_phase(tmp, ucfg, smi)
 

@@ -3,7 +3,9 @@
 //
 // Replaces: emap_tpu/kernels/mlp_query.py::_pallas_value (reached through
 // pallas_udf_value from the grid pass of emap_tpu/extract/pointcloud.py and
-// the probe certification of emap_tpu/extract/autothresh.py).
+// the probe certification of emap_tpu/extract/autothresh.py) at the bf16
+// tier. At 3xTF32 mlp_value_tf32.cu (wgmma) runs the path, and this
+// kernel is timed beside it (kernels/mlp_query.py::value_mma_sync).
 //
 // Computes, per point: the in-kernel PE encode, 9 linears with
 // softplus(100 z)/100 (skip concat scaled by 1/sqrt(2)), then the

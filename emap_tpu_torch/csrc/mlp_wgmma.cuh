@@ -1,6 +1,7 @@
 // Hopper's own machinery for the fused field kernels (mlp_train_wgmma.cu,
-// mlp_query_wgmma.cu; mlp_query_tf32.cu takes the mbarrier, TMA, warpgroup
-// and side-array pieces): warpgroup matrix products (wgmma) with operands in
+// mlp_query_wgmma.cu; the 3xTF32 kernels, through mlp_tf32.cuh, take the
+// mbarrier, TMA, warpgroup and side-array pieces): warpgroup matrix
+// products (wgmma) with operands in
 // shared memory, TMA copies between device and shared memory, the
 // mbarriers that report them, the register split between a producer
 // warpgroup and its consumers, and the chain engine the two kernels share

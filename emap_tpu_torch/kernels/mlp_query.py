@@ -35,8 +35,15 @@ value alone for the extraction grid.
 * `value_and_grad_sliced` calls `value_and_grad` over slices of at most
   SLICE_CAP points, which bounds the kernels' device scratch on the
   extraction's large calls.
-* `value`: the same for csrc/mlp_value.cu (replaces
-  emap_tpu/kernels/mlp_query.py::_pallas_value), with `value.launches`.
+* `value`: the same for the grid value kernels (replace
+  emap_tpu/kernels/mlp_query.py::_pallas_value), with `value.launches` and
+  `value.tier_launches`: at the 3xTF32 tier csrc/mlp_value_tf32.cu (wgmma
+  .tf32 and TMA: the forward-only pre-split pack and a persistent kernel of
+  two consumer warpgroups on one fp32 tile; `value_tf32_plan`,
+  `value_tf32_launch_costs`), at the bf16 tier csrc/mlp_value.cu
+  (mma.sync). `value_mma_sync` runs mlp_value.cu at either tier for timing
+  beside the wgmma kernel and `value_tf32_parts` returns what each of its
+  launches wrote; no path calls them.
 * `query_value`, `query_value_and_grad`: (M, 3) points in, padded to the
   tile, the counterparts of `pallas_udf_value` and
   `pallas_udf_value_and_grad` that the extraction calls.
@@ -588,17 +595,19 @@ def _perm_columns(k: int, perm, device) -> torch.Tensor:
     return (c & ~7) | torch.as_tensor(perm, device=device)[c & 7]
 
 
-def pack_weights_tf32(w_pack, cfg: UDFConfig) -> torch.Tensor:
-    """The 3xTF32 kernel's weight pack, (2 x WGMMA_FMAX, ldp) fp32: each
+def pack_weights_tf32(w_pack, cfg: UDFConfig,
+                      transposed: bool = True) -> torch.Tensor:
+    """The 3xTF32 kernels' weight pack, (2 x WGMMA_FMAX, ldp) fp32: each
     hidden layer's block of w_pack (forward) and its transpose, at their
     query_tf32_layout columns, the columns of each 8-group in TF32_PERM
     order, zeros past the live rows and columns; hi = rna(w) in the first
-    WGMMA_FMAX rows, lo = rna(w - hi) in the rest. The plain version of
-    the prologue (pack_tf32_kernel)."""
+    WGMMA_FMAX rows, lo = rna(w - hi) in the rest. Without `transposed`,
+    the value kernel's forward-only pack: the first ldf columns alone. The
+    plain version of the prologue (pack_tf32_kernel)."""
     lay = query_tf32_layout(cfg)
     dev = w_pack.device
-    full = torch.zeros(WGMMA_FMAX, lay["ldp"], dtype=torch.float32,
-                       device=dev)
+    full = torch.zeros(WGMMA_FMAX, lay["ldp"] if transposed else lay["ldf"],
+                       dtype=torch.float32, device=dev)
     off = 0
     for (i, o), kf, kt, cf, c_t in zip(lay["dims"], lay["kf"], lay["kt"],
                                        lay["offf"], lay["offt"]):
@@ -609,15 +618,17 @@ def pack_weights_tf32(w_pack, cfg: UDFConfig) -> torch.Tensor:
         wt = torch.zeros(i, kt, dtype=torch.float32, device=dev)
         wt[:, :o] = w.T
         full[:o, cf: cf + kf] = wf[:, _perm_columns(kf, TF32_PERM, dev)]
-        ct = lay["ldf"] + c_t
-        full[:i, ct: ct + kt] = wt[:, _perm_columns(kt, TF32_PERM, dev)]
+        if transposed:
+            ct = lay["ldf"] + c_t
+            full[:i, ct: ct + kt] = wt[:, _perm_columns(kt, TF32_PERM, dev)]
     hi, lo = split_tf32(full)
     return torch.cat([hi, lo], dim=0)
 
 
 def unpack_weights_tf32(pack, cfg: UDFConfig):
     """[(W_l (out_l, in_l), W_l^T (in_l, out_l))] per hidden layer from a
-    3xTF32 pack: hi + lo in fp32 with the column order undone."""
+    3xTF32 pack: hi + lo in fp32 with the column order undone; W_l^T None
+    from a forward-only pack (ldf columns)."""
     lay = query_tf32_layout(cfg)
     whole = pack[:WGMMA_FMAX] + pack[WGMMA_FMAX:]
     inv = [TF32_PERM.index(p) for p in range(8)]
@@ -625,6 +636,9 @@ def unpack_weights_tf32(pack, cfg: UDFConfig):
     for (i, o), kf, kt, cf, c_t in zip(lay["dims"], lay["kf"], lay["kt"],
                                        lay["offf"], lay["offt"]):
         fwd = whole[:, cf: cf + kf][:, _perm_columns(kf, inv, pack.device)]
+        if pack.shape[1] == lay["ldf"]:
+            out.append((fwd[:o, :i], None))
+            continue
         ct = lay["ldf"] + c_t
         trans = whole[:, ct: ct + kt][:, _perm_columns(kt, inv,
                                                        pack.device)]
@@ -724,6 +738,96 @@ def query_tf32_launch_costs(cfg: UDFConfig, n: int,
                   + f32 * rmax * L, "side_bytes": side,
                   "stream_bytes": plan["blocks"]
                   * plan["stream_bytes_per_block"]},
+    }
+
+
+# The 3xTF32 value kernel (csrc/mlp_value_tf32.cu): a persistent grid of
+# one block an SM (H100_SMS on the H100), each block a producer warpgroup
+# and two consumer warpgroups that walk 64-point tiles through every layer
+# together in one fp32 tile, a layer's outputs in passes of 64 (m64n64k8),
+# the consumers taking alternate passes, each with a ring of
+# VALUE_TF32_STAGES entries of its own (64 output rows x 32 contraction
+# steps, hi and lo: 16 KB) fed by a producer warp of its own.
+H100_SMS = 132
+VALUE_TF32_CONSUMERS = 2
+VALUE_TF32_STAGES = 3
+VALUE_TF32_PASS = 64  # outputs of a pass: one m64n64 product
+# a consumer thread's fp32 registers: a pass's accumulators and its chunk's,
+# two sets of split A fragments (4 k8 steps x 4, hi and lo: the next
+# chunk's split while the current chunk's products run) and the first
+# pass's activated outputs, held until both consumers have read the tile,
+# within the 168 registers a thread that ptxas compiles the kernel to (the
+# launch bound: 65,536 / 384 threads; setmaxnreg gives the consumers 232
+# and the producer warpgroup 40 at run time, not to the compiler)
+VALUE_TF32_REGISTERS = {"pass_accumulators": 32, "chunk_accumulators": 32,
+                        "a_fragments": 2 * 2 * 4 * 4, "held": 32,
+                        "compiled": 168, "consumer": 232, "producer": 40}
+
+
+def value_tf32_plan(cfg: UDFConfig, n: int, sms: int = H100_SMS) -> dict:
+    """Shared memory, registers, launch shape and the weight stream of one
+    launch of the 3xTF32 value kernels at n points on a card of `sms` SMs,
+    as csrc/mlp_value_tf32.cu reckons them (emap_mlp_value_tf32_sizes):
+    the forward-only pack, the ring entries and the bytes a 64-point tile
+    streams from L2 (and the 128 x 32 weight chunks they make). Raises
+    ValueError for a net the kernels do not take (check_engine_cfg's
+    refusals, a skip at the head) or a plan past the block's shared
+    memory, on every device."""
+    lay = check_engine_cfg(cfg)
+    if cfg.n_layers in cfg.skip_in:
+        raise ValueError("the 3xTF32 value kernel takes no skip at the head")
+    tl = query_tf32_layout(cfg)
+    entry = 2 * VALUE_TF32_PASS * TF32_CHUNK * 4  # hi and lo, fp32
+    parts = {
+        f"weight rings (2 consumers x {VALUE_TF32_STAGES} stages of 64 x "
+        f"32 fp32, hi and lo)": VALUE_TF32_CONSUMERS * VALUE_TF32_STAGES
+        * entry,
+        "activation tile (64 points x 256 fp32)": 64 * WGMMA_FMAX * 4,
+        "head sums (2 consumers x 64 points)": VALUE_TF32_CONSUMERS * 64 * 4,
+        "mbarriers": 2 * VALUE_TF32_CONSUMERS * VALUE_TF32_STAGES * 8,
+        "alignment": 1024,
+    }
+    smem = sum(parts.values())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the 3xTF32 value kernel needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    # a tile's ring entries: each layer's passes x its chunks
+    entries = sum(-(-o // VALUE_TF32_PASS) * kf // TF32_CHUNK
+                  for (_, o), kf in zip(lay["dims"][:-1], tl["kf"]))
+    chunks = sum(-(-o // 128) * kf // TF32_CHUNK
+                 for (_, o), kf in zip(lay["dims"][:-1], tl["kf"]))
+    tiles = -(-n // TF32_BLOCK_POINTS)
+    return {
+        "smem": smem, "smem_parts": parts,
+        "registers": dict(VALUE_TF32_REGISTERS),
+        "blocks": min(sms, tiles), "tiles": tiles,
+        "stages": VALUE_TF32_STAGES, "pack": 2 * WGMMA_FMAX * tl["ldf"],
+        "entries_per_tile": entries, "chunks_per_tile": chunks,
+        "stream_bytes_per_tile": entries * entry,
+    }
+
+
+def value_tf32_launch_costs(cfg: UDFConfig, n: int) -> dict:
+    """Each launch of the 3xTF32 value kernels at n points: the FLOP of its
+    products (2 * in * out each, unpadded shapes; the kernel does three
+    TF32 passes of each) and the bytes it must move (each input read once,
+    each output written once), and beside them the weight entries its
+    tiles stream from L2 (stream_bytes_per_tile x tiles)."""
+    tl = query_tf32_layout(cfg)
+    dims = layer_dims(cfg)
+    rmax, ldw = max(o for _, o in dims), sum(i for i, _ in dims)
+    f32 = 4
+    w_bytes, pk_bytes = f32 * rmax * ldw, f32 * 2 * WGMMA_FMAX * tl["ldf"]
+    plan = value_tf32_plan(cfg, n)
+    return {
+        "pack": {"flops": 0, "bytes": w_bytes + pk_bytes},
+        # points (8, n) in, udf (n,) out; the pack, the head's fp32 row and
+        # the biases
+        "value": {"flops": value_flops(cfg) * n,
+                  "bytes": f32 * 9 * n + pk_bytes + f32 * dims[-1][0]
+                  + f32 * rmax * len(dims),
+                  "stream_bytes": plan["tiles"]
+                  * plan["stream_bytes_per_tile"]},
     }
 
 
@@ -965,13 +1069,52 @@ def _value_lib():
     return lib
 
 
-def value(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """udf (N,) at raw points x_T (8, N), at cfg.precision. CPU tensors take
-    value_plain; CUDA tensors launch the kernel (no device scratch)."""
-    if not x_T.is_cuda:
-        return value_plain(x_T, w_pack, b_pack, cfg)
-    n = check_operands(cfg, (x_T, w_pack, b_pack))
-    tier = kernel_tier(cfg.precision)
+def _value_tf32_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_value_tf32")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_value_tf32_sizes.argtypes = [vp, ctypes.c_longlong, vp]
+        lib.emap_mlp_value_tf32_sizes.restype = ctypes.c_int
+        lib.emap_mlp_value_tf32.argtypes = [
+            vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, vp]
+        lib.emap_mlp_value_tf32.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def value_tf32_sizes(cfg: UDFConfig, n: int) -> dict:
+    """The 3xTF32 value library's own reckoning of a launch at n points on
+    the current card (card only; the CPU reckons value_tf32_plan): pack,
+    smem, blocks, tiles."""
+    out = (ctypes.c_longlong * 4)()
+    if _value_tf32_lib().emap_mlp_value_tf32_sizes(
+            kernel_layout(cfg).ctypes.data, n, out):
+        raise ValueError("layout refused by the 3xTF32 value kernel")
+    return dict(zip(("pack", "smem", "blocks", "tiles"), list(out)))
+
+
+def _launch_value_tf32(x_T, w_pack, b_pack, cfg, n):
+    """(udf, scratch): the 3xTF32 value launches and the pack they
+    wrote."""
+    lib = _value_tf32_lib()
+    plan = value_tf32_plan(cfg, n)
+    dev = x_T.device
+    udf = torch.empty(n, device=dev, dtype=torch.float32)
+    pack = torch.empty(plan["pack"], device=dev, dtype=torch.float32)
+    err = lib.emap_mlp_value_tf32(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
+        pack.data_ptr(), n, kernel_layout(cfg).ctypes.data,
+        float(cfg.scale), 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mlp_value_tf32 kernel launch failed: CUDA "
+                           f"error {err}")
+    return udf, {"pack": pack.view(2 * WGMMA_FMAX, -1)}
+
+
+def _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
     lib = _value_lib()
     layout = kernel_layout(cfg)
     if lib.emap_mlp_value_smem_bytes(layout.ctypes.data) < 0:
@@ -984,6 +1127,21 @@ def value(x_T, w_pack, b_pack, cfg: UDFConfig):
         n, layout.ctypes.data, float(cfg.scale), tier, stream)
     if err:
         raise RuntimeError(f"mlp_value kernel launch failed: CUDA error {err}")
+    return udf
+
+
+def value(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """udf (N,) at raw points x_T (8, N), at cfg.precision. CPU tensors take
+    value_plain; CUDA tensors launch the kernels: mlp_value_tf32.cu's at
+    the 3xTF32 tier, mlp_value.cu's at the bf16 tier."""
+    if not x_T.is_cuda:
+        return value_plain(x_T, w_pack, b_pack, cfg)
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    tier = kernel_tier(cfg.precision)
+    if tier == 0:
+        udf = _launch_value_tf32(x_T, w_pack, b_pack, cfg, n)[0]
+    else:
+        udf = _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n, tier)
     value.launches += 1
     value.tier_launches[TIER_NAMES[tier]] += 1
     return udf
@@ -991,6 +1149,27 @@ def value(x_T, w_pack, b_pack, cfg: UDFConfig):
 
 value.launches = 0
 value.tier_launches = dict.fromkeys(TIER_NAMES, 0)
+
+
+def value_tf32_parts(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """One launch of the 3xTF32 value kernels on CUDA tensors at cfg
+    ("high" or "highest") with what each launch wrote: udf and pack (the
+    prologue's forward-only pack), to hold each launch against its plain
+    version. Counted in no launch count; no path calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    if kernel_tier(cfg.precision) != 0:
+        raise ValueError("the 3xTF32 value kernels run the fp32 tiers only")
+    udf, scratch = _launch_value_tf32(x_T, w_pack, b_pack, cfg, n)
+    return dict(scratch, udf=udf)
+
+
+def value_mma_sync(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """csrc/mlp_value.cu at cfg's tier, on CUDA tensors: at 3xTF32 the
+    mma.sync design timed beside mlp_value_tf32.cu. Counted in no launch
+    count; no path calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    return _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n,
+                                  kernel_tier(cfg.precision))
 
 
 def _packed_points(params, pts, cfg: UDFConfig):
@@ -1048,5 +1227,6 @@ __all__ = [
     "query_wgmma_launch_costs", "bf16_residuals", "query_tf32_layout",
     "pack_weights_tf32", "unpack_weights_tf32", "tf32x3_matmul",
     "query_tf32_plan", "query_tf32_launch_costs", "plain_residuals",
-    "side_residuals",
+    "side_residuals", "value_tf32_plan", "value_tf32_launch_costs",
+    "value_tf32_parts", "value_mma_sync",
 ]

@@ -12,7 +12,9 @@ changes are timed for it (all of them for as_built): the training kernels
 at the training step's shape (ABC width, 116,736 points), forward (#1a:
 mlp_query.cu's mma.sync design, value_and_grad_mma_sync) and backward (#2,
 mlp_train.cu, with its two main kernels from torch.profiler), and the grid
-value kernel (#3, mlp_value.cu) at a 128^3 grid pass (2,097,152 points).
+value kernel (#3: mlp_value.cu's mma.sync design, value_mma_sync, and
+mlp_value_tf32.cu's wgmma one, with its two launches from torch.profiler)
+at a 128^3 grid pass (2,097,152 points).
 Every line gives the max relative error against the plain PyTorch
 versions (udf, grad, the worst W-bar/b-bar block), and ptxas' registers
 and spills lead each ablation's lines.
@@ -31,7 +33,9 @@ that tier with fp32 residuals (#1a's field_high route) and with bf16 ones
 (#1b's extraction sweeps), its two launches from torch.profiler and the
 max and mean error against the plain version (the gradient against the
 plain version given the kernel's own residuals with bf16 ones:
-kernels/mlp_query.py::side_residuals). Ablations that drop work give wrong
+kernels/mlp_query.py::side_residuals). The value_tf32_* ablations patch
+#3's 3xTF32 kernel (mlp_value_tf32.cu), timed at a 128^3 grid pass.
+Ablations that drop work give wrong
 results by
 design: they measure what that work costs. The card's name and power
 limit lead the output. No CPU fallback: without CUDA it fails.
@@ -542,36 +546,246 @@ ABLATIONS.update({
          "")]},
     # the lo boxes not loaded, the hi chunk read in their place (half the
     # weight stream from L2: wrong results, what the stream costs)
-    "query_tf32_half_stream": {"mlp_query_tf32.cu": [
-        ("        mbar_expect_tx(&full[stage], 2 * boxes * T_BOX_BYTES);",
-         "        mbar_expect_tx(&full[stage], boxes * T_BOX_BYTES);"),
-        ("""          tma_load(dst + T_HALF_BYTES + j * T_BOX_BYTES, mp, col + 32 * c,
-                   FMAX + row, &full[stage]);
-""", ""),
-        ("bl = bh + T_HALF_BYTES;", "bl = bh;")]},
+    "query_tf32_half_stream": {
+        "mlp_query_tf32.cu": [
+            ("        mbar_expect_tx(&full[stage], 2 * boxes * T_BOX_BYTES);",
+             "        mbar_expect_tx(&full[stage], boxes * T_BOX_BYTES);"),
+            ("bl = bh + T_HALF_BYTES;", "bl = bh;")],
+        "mlp_tf32.cuh": [
+            ("""    tma_load(dst + lo_off + j * T_BOX_BYTES, mp, col, FMAX + row + 64 * j,
+             bar);
+""", "")]},
     # a 2-stage ring in place of 4 (half the weight chunks in flight)
     "query_tf32_stages2": {"mlp_query_tf32.cu": [
         ("constexpr int T_STAGES = 4;", "constexpr int T_STAGES = 2;")]},
     # A's fragments passed unsplit (hi the fp32 bits, lo 0: wrong results,
     # what the split's integer and float work costs)
-    "query_tf32_no_split": {"mlp_query_tf32.cu": [(
-        """      split3(v0.x, ah[s][0], al[s][0]);
-      split3(v1.x, ah[s][1], al[s][1]);
-      split3(v0.y, ah[s][2], al[s][2]);
-      split3(v1.y, ah[s][3], al[s][3]);""",
-        """      ah[s][0] = __float_as_uint(v0.x);
-      ah[s][1] = __float_as_uint(v1.x);
-      ah[s][2] = __float_as_uint(v0.y);
-      ah[s][3] = __float_as_uint(v1.y);
-      al[s][0] = al[s][1] = al[s][2] = al[s][3] = 0u;""")]},
+    "query_tf32_no_split": {"mlp_tf32.cuh": [(
+        """    split3(v0.x, ah[s][0], al[s][0]);
+    split3(v1.x, ah[s][1], al[s][1]);
+    split3(v0.y, ah[s][2], al[s][2]);
+    split3(v1.y, ah[s][3], al[s][3]);""",
+        """    ah[s][0] = __float_as_uint(v0.x);
+    ah[s][1] = __float_as_uint(v1.x);
+    ah[s][2] = __float_as_uint(v0.y);
+    ah[s][3] = __float_as_uint(v1.y);
+    al[s][0] = al[s][1] = al[s][2] = al[s][3] = 0u;""")]},
     "query_tf32_one_pass": {"mlp_query_tf32.cu": [
         (TF32_PASSES,
          "      wgmma_tf32<NW>(part, ah[s], desc_kmajor(bh, s), s);")]},
 })
+VALUE_TF32_ONE_TILE = """  for (long long tt = blockIdx.x; tt < a.tiles; tt += gridDim.x) {
+    p0 = tt * PW;
+    // x = PE(points): layer 0's input, zeros up to its contraction
+    fill_x(tile, 0, tl.kf[0], 1.f);
+    csync();
+    for (int l = 0; l < L - 1; ++l) {
+      const int M = lay.out[l], K = tl.kf[l], np = passes(M);
+      const bool head = l == L - 2;
+      const float scale = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
+      float s[2] = {0.f, 0.f};  // the head's dot: this thread's share
+      // this consumer's passes (cw, cw + V_CONSUMERS), activated, wait in
+      // registers until both consumers have read the whole tile
+      float held[V_HELD][V_NP][32];
+#pragma unroll
+      for (int kk = 0; kk < V_HELD; ++kk) {
+        const int k = cw + V_CONSUMERS * kk;
+        if (k < np) {
+          product(tile, K, pass_entries(M, k));
+          activate(l, k, M, scale);
+#pragma unroll
+          for (int n = 0; n < V_NP; ++n)
+#pragma unroll
+            for (int r = 0; r < 32; ++r) held[kk][n][r] = acc[n][r];
+        }
+      }
+      if (!head) csync();
+#pragma unroll
+      for (int kk = 0; kk < V_HELD; ++kk) {
+        const int k = cw + V_CONSUMERS * kk;
+        if (k >= np) continue;
+#pragma unroll
+        for (int n = 0; n < V_NP; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int f0 = 64 * (V_NP * k + n) + 8 * j + 2 * q;
+            const float* v = held[kk][n] + 4 * j;
+            if (head) {
+              // the last hidden layer's outputs: their share of w . u
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (f0 + (e & 1) < M)
+                  s[e >> 1] = fmaf(whead[f0 + (e & 1)], v[e], s[e >> 1]);
+            } else {
+              *reinterpret_cast<float2*>(tile_ptr(tile, p, f0)) =
+                  make_float2(v[0], v[1]);
+              *reinterpret_cast<float2*>(tile_ptr(tile, p + 8, f0)) =
+                  make_float2(v[2], v[3]);
+            }
+          }
+      }
+      if (head) {
+        // the quad's shares, then the consumer's sum for points p, p + 8
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+          if (q == 0) red[cw * PW + p + 8 * h] = s[h];
+        }
+      } else if (lay.skip[l + 1]) {
+        // at a skip the features from out_l on are x / sqrt2, once every
+        // pass has written its outputs
+        csync();
+        fill_x(tile, M, tl.kf[l + 1], INV_SQRT2);
+      }
+      csync();
+    }
+"""
+VALUE_TF32_TWO_TILES = """  unsigned char* const X = tile;
+  unsigned char* const Y = tile + T_TILE_BYTES;
+  for (long long tt = blockIdx.x; tt < a.tiles; tt += gridDim.x) {
+    p0 = tt * PW;
+    // x = PE(points): layer 0's input, zeros up to its contraction
+    fill_x(X, 0, tl.kf[0], 1.f);
+    csync();
+    for (int l = 0; l < L - 1; ++l) {
+      unsigned char* const in = l & 1 ? Y : X;
+      unsigned char* const out = l & 1 ? X : Y;
+      const int M = lay.out[l], K = tl.kf[l], np = passes(M);
+      const bool head = l == L - 2;
+      const float scale = lay.skip[l + 1] ? INV_SQRT2 : 1.f;
+      float s[2] = {0.f, 0.f};  // the head's dot: this thread's share
+      for (int k = cw; k < np; k += V_CONSUMERS) {
+        product(in, K, pass_entries(M, k));
+        activate(l, k, M, scale);
+#pragma unroll
+        for (int n = 0; n < V_NP; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int f0 = 64 * (V_NP * k + n) + 8 * j + 2 * q;
+            if (head) {
+              // the last hidden layer's outputs: their share of w . u
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (f0 + (e & 1) < M)
+                  s[e >> 1] = fmaf(whead[f0 + (e & 1)], acc[n][4 * j + e],
+                                   s[e >> 1]);
+            } else {
+              *reinterpret_cast<float2*>(tile_ptr(out, p, f0)) =
+                  make_float2(acc[n][4 * j], acc[n][4 * j + 1]);
+              *reinterpret_cast<float2*>(tile_ptr(out, p + 8, f0)) =
+                  make_float2(acc[n][4 * j + 2], acc[n][4 * j + 3]);
+            }
+          }
+      }
+      if (head) {
+        // the quad's shares, then the consumer's sum for points p, p + 8
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+          if (q == 0) red[cw * PW + p + 8 * h] = s[h];
+        }
+      } else if (lay.skip[l + 1]) {
+        // at a skip the features from out_l on are x / sqrt2, once every
+        // pass has written its outputs
+        csync();
+        fill_x(out, M, tl.kf[l + 1], INV_SQRT2);
+      }
+      csync();
+    }
+"""
+VALUE_TF32_WGMMAS = """          wgmma_tf32_n64(part[e], al[s], desc_kmajor(bh, s), s);
+          wgmma_tf32_n64(part[e], ah[s], desc_kmajor(bl, s), 1);
+          wgmma_tf32_n64(part[e], ah[s], desc_kmajor(bh, s), 1);"""
+# #3's 3xTF32 kernel (mlp_value_tf32.cu), timed at that tier at a 128^3
+# grid pass: a layer's input and output in two tiles, each pass's outputs
+# stored as soon as they are ready (in place of one tile, over which the
+# held passes go once both consumers have read it), the second consumer
+# held back at each layer until the first
+# has run its first pass's products (ping-pong: one consumer's epilogue
+# beside the other's products, their products seldom together), the next
+# chunk's A split after the current chunk's products in place of beside
+# them (one set of A fragments), the epilogue's exact softplus replaced by
+# a scale (wrong results: what the exact fp32 math costs) or by the
+# special function unit's forms, a 2-stage ring a consumer in place of 3,
+# one wgmma chain a contraction (no fresh accumulator a 32-step chunk),
+# passes of 128 outputs (two m64n64 products a pass: 64 more accumulator
+# registers, half the A loads) in place of 64, and the lo boxes not
+# loaded, the hi box read in their place (half the weight stream from L2:
+# wrong results, what the stream costs).
+ABLATIONS.update({
+    "value_tf32_two_tiles": {"mlp_value_tf32.cu": [
+        ("                       T_TILE_BYTES + V_CONSUMERS * PW * 4 +",
+         "                       2 * T_TILE_BYTES + V_CONSUMERS * PW * 4 +"),
+        ("float* red = reinterpret_cast<float*>(tile + T_TILE_BYTES);",
+         "float* red = reinterpret_cast<float*>(tile + 2 * T_TILE_BYTES);"),
+        (VALUE_TF32_ONE_TILE, VALUE_TF32_TWO_TILES)]},
+    "value_tf32_pingpong": {"mlp_value_tf32.cu": [
+        ("      float s[2] = {0.f, 0.f};  // the head's dot: this thread's share",
+         "      float s[2] = {0.f, 0.f};  // the head's dot: this thread's share\n"
+         "      if (cw == 1) named_sync(2, V_CONSUMERS * WG);"),
+        ("          product(tile, K, pass_entries(M, k));",
+         "          product(tile, K, pass_entries(M, k));\n"
+         "        if (k == 0) asm volatile(\"bar.arrive 2, %0;\" :: "
+         "\"r\"(V_CONSUMERS * WG) : \"memory\");")]},
+    "value_tf32_no_prefetch": {"mlp_value_tf32.cu": [(
+        """    split_a_chunk(in, p, q, 0, xh, xl);
+    for (int c = 0; c < nc; c += 2) {
+      chunk(in, ne, xh, xl, c + 1, nc, yh, yl);
+      if (c + 1 < nc) chunk(in, ne, yh, yl, c + 2, nc, xh, xl);
+    }""",
+        """    for (int c = 0; c < nc; ++c) {
+      split_a_chunk(in, p, q, c, xh, xl);
+      chunk(in, ne, xh, xl, nc, nc, yh, yl);
+    }""")]},
+    "value_tf32_no_epilogue_math": {"mlp_value_tf32.cu": [(
+        "softplus100(acc[n][4 * j + e] + bias) * scale;",
+        "(acc[n][4 * j + e] + bias) * 0.01f * scale;")]},
+    "value_tf32_approx_math": {"mlp_value_tf32.cu": [
+        ("struct VArgs {", """\
+__device__ __forceinline__ float softplus100_approx(float z) {
+  const float t = z * 100.f;
+  float e, lg;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-fabsf(t) * 1.44269504f));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(lg) : "f"(1.f + e));
+  const float lp =
+      e < 0.015625f
+          ? e * (1.f - e * (0.5f - e * (0.33333334f - e * 0.25f)))
+          : lg * 0.69314718f;
+  return (fmaxf(t, 0.f) + lp) * 0.01f;
+}
+
+struct VArgs {"""),
+        ("softplus100(acc[n][4 * j + e] + bias)",
+         "softplus100_approx(acc[n][4 * j + e] + bias)")]},
+    "value_tf32_stages2": {"mlp_value_tf32.cu": [
+        ("constexpr int V_STAGES = 3;", "constexpr int V_STAGES = 2;")]},
+    "value_tf32_no_promotion": {"mlp_value_tf32.cu": [
+        (VALUE_TF32_WGMMAS, VALUE_TF32_WGMMAS.replace(
+            "(part[e],", "(acc[e],").replace("bh, s), s);", "bh, s), 1);")),
+        ("""#pragma unroll
+    for (int e = 0; e < V_NP; ++e)
+      if (V_NP == 1 || e < ne)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[e][r] += part[e][r];
+""", "")]},
+    "value_tf32_halves": {"mlp_value_tf32.cu": [
+        ("constexpr int V_NP = 1;", "constexpr int V_NP = 2;")]},
+    "value_tf32_half_stream": {"mlp_value_tf32.cu": [
+        ("            mbar_expect_tx(&full[stage], V_ENTRY_BYTES);",
+         "            mbar_expect_tx(&full[stage], T_BOX_BYTES);"),
+        ("""            tma_entry(ring + stage * V_ENTRY_BYTES, mp, tl.offf[l] + 32 * c,
+                      64 * (V_NP * k + e), 1, T_BOX_BYTES, &full[stage]);""",
+         """            tma_load(ring + stage * V_ENTRY_BYTES, mp, tl.offf[l] + 32 * c,
+                     64 * (V_NP * k + e), &full[stage]);"""),
+        ("bl = bh + T_BOX_BYTES;", "bl = bh;")]},
+})
 # The libraries an ablation is timed on where not every library its
 # patches reach: p128's tile does not fit the training kernels' shared
-# memory.
-TIMED = {"p128": ("mlp_value",)}
+# memory; the patches of mlp_tf32.cuh are #1's ablations.
+TIMED = {"p128": ("mlp_value",), "query_tf32_no_split": ("mlp_query_tf32",),
+         "query_tf32_half_stream": ("mlp_query_tf32",)}
 
 
 def patched_tree(root: str, name: str) -> str:
@@ -837,13 +1051,27 @@ def main(argv) -> int:
                           f"err wbar {worst:.2e}, mean {mean:.2e}"
                           f"{same(name, '2 bf16', out)}", flush=True)
                 if "mlp_value" in libs:
+                    ug = tq.value_mma_sync(xg, w, b, cfg)
+                    again = torch.equal(ug, tq.value_mma_sync(xg, w, b, cfg))
+                    val_ms = ms(lambda: tq.value_mma_sync(xg, w, b, cfg))
+                    print(f"round {rnd} {name:20s} #3 mma.sync {val_ms:8.3f} "
+                          f"ms  max rel err udf {rel(ug, ug_p):.2e}, two "
+                          f"launches bit-identical: {again}"
+                          f"{same(name, '3', (ug,))}", flush=True)
+                if "mlp_value_tf32" in libs:
                     ug = tq.value(xg, w, b, cfg)
                     again = torch.equal(ug, tq.value(xg, w, b, cfg))
                     val_ms = ms(lambda: tq.value(xg, w, b, cfg))
-                    print(f"round {rnd} {name:20s} #3  {val_ms:8.3f} ms  max "
-                          f"rel err udf {rel(ug, ug_p):.2e}, two launches "
-                          f"bit-identical: {again}{same(name, '3', (ug,))}",
-                          flush=True)
+                    lp = launch_ms(lambda: tq.value(xg, w, b, cfg))
+                    mean = float((ug - ug_p).abs().mean()
+                                 / (ug_p.abs().max() + 1e-30))
+                    print(f"round {rnd} {name:20s} #3 3xTF32 wgmma "
+                          f"{val_ms:8.3f} ms (pack "
+                          f"{lp.get('pack_tf32_kernel', 0.0):.3f}, value "
+                          f"{lp.get('value_tf32_kernel', 0.0):.3f})  max rel "
+                          f"err udf {rel(ug, ug_p):.2e}, mean {mean:.2e}, two "
+                          f"launches bit-identical: {again}"
+                          f"{same(name, '3 tf32', (ug,))}", flush=True)
     return 0
 
 

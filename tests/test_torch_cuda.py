@@ -346,7 +346,7 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
                                  "mlp_train_wgmma", "mlp_query_wgmma",
-                                 "mlp_query_tf32"])
+                                 "mlp_query_tf32", "mlp_value_tf32"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     """Each kernel library's SASS holds tensor-core instructions: HMMA
     (mma.sync), or HGMMA (wgmma) in the wgmma libraries."""
@@ -719,6 +719,125 @@ def test_cuda_tf32_query_pack_plan_and_twin(cuda, name):
         "pack": plan["pack"], "side": plan["side"], "smem": plan["smem"],
         "blocks": plan["blocks"]}
     _tf32_held(twin, tq.value_and_grad_plain(x, w, b, cfg))
+
+
+# The 3xTF32 grid value kernels (csrc/mlp_value_tf32.cu) against value_plain
+# at "high": fp32-accurate products summed in another order, TF32_RTOL of
+# the largest udf (chip_smoke.py's KERNEL_RTOL).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65_536, 4160])
+@pytest.mark.parametrize("name", ["abc", "replica", "toy-square"])
+def test_cuda_value_tf32_matches_plain(cuda, name, n):
+    """value at "high" launches the 3xTF32 value kernels: against
+    value_plain within TF32_RTOL at ABC width (d0p 64), Replica's (d0p 40)
+    and a toy square-head net, at 65,536 points and at 4,160 (65 tiles of
+    64: the last block's second consumer has none); two launches
+    bit-identical; one launch counted a call under "3xtf32";
+    value_tf32_parts' udf the same bits, its prologue's pack
+    pack_weights_tf32's forward blocks bit for bit; the library reckons the
+    launch as value_tf32_plan on this card; value_tf32_parts and the
+    mma.sync twin (csrc/mlp_value.cu, timed beside it), which still matches
+    the plain version, count no launch."""
+    cfg = dataclasses.replace(CFGS[name], precision="high")
+    x, _, _ = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value.tier_launches)
+    runs = [tq.value(x, w, b, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tq.value.tier_launches == dict(
+        before, **{"3xtf32": before["3xtf32"] + 2})
+    assert torch.equal(runs[0], runs[1]) and runs[0].shape == (n,)
+    assert bool(torch.isfinite(runs[0]).all())
+    want = tq.value_plain(x, w, b, cfg)
+    assert max_rel(runs[0], want) < TF32_RTOL
+    parts = tq.value_tf32_parts(x, w, b, cfg)
+    twin = tq.value_mma_sync(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert tq.value.tier_launches["3xtf32"] == before["3xtf32"] + 2
+    assert torch.equal(parts["udf"], runs[0])
+    assert torch.equal(parts["pack"],
+                       tq.pack_weights_tf32(w, cfg, transposed=False))
+    plan = tq.value_tf32_plan(cfg, n, sms=torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert tq.value_tf32_sizes(cfg, n) == {
+        "pack": plan["pack"], "smem": plan["smem"], "blocks": plan["blocks"],
+        "tiles": plan["tiles"]}
+    assert max_rel(twin, want) < TF32_RTOL
+
+
+@pytest.mark.cuda
+def test_cuda_value_tf32_runs_hgmma_tf32_only(cuda):
+    """The 3xTF32 value library's SASS holds wgmma at TF32 (HGMMA.*.TF32)
+    and no mma.sync (HMMA)."""
+    import re
+    import shutil
+    import subprocess
+
+    from emap_tpu_torch.kernels import build
+
+    build.load("mlp_value_tf32")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.lib_path("mlp_value_tf32")],
+                          capture_output=True, text=True, check=True).stdout
+    assert re.search(r"HGMMA\.\S*TF32", sass)
+    assert "HMMA" not in sass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multires", [10, 6])
+def test_cuda_value_bf16_tier_stays_on_mma_sync(cuda, multires):
+    """value at the bf16 tier ("default") still runs csrc/mlp_value.cu's
+    mma.sync kernel: bit for bit value_mma_sync at that tier, counted a
+    call under "bf16" and none under "3xtf32"."""
+    cfg = tudf.UDFConfig(multires=multires, precision="default")
+    x, _, _ = points(65_536, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value.tier_launches)
+    u = tq.value(x, w, b, cfg)
+    twin = tq.value_mma_sync(x, w, b, cfg)
+    torch.cuda.synchronize()
+    assert tq.value.tier_launches == dict(before,
+                                          bf16=before["bf16"] + 1)
+    assert torch.equal(u, twin)
+
+
+def _fixture_script():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "torch_query_tf32_fixture.py")
+    spec = importlib.util.spec_from_file_location("query_tf32_fixture", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_query_tf32_equals_its_stored_launch(cuda):
+    """The 3xTF32 query kernel (csrc/mlp_query_tf32.cu), whose TF32
+    machinery moved into csrc/mlp_tf32.cuh, gives the outputs its build
+    before the move gave on the same inputs, bit for bit: udf and the
+    gradient at "high" with fp32 and with bf16 residuals, on the integer-
+    hashed inputs of scripts/torch_query_tf32_fixture.py at ABC width
+    (tests/fixtures/query_tf32_launch.npz, stored by that script from the
+    earlier build on an H100)."""
+    fixture = _fixture_script()
+    cfg = dataclasses.replace(tudf.UDFConfig(), precision="high")
+    x, w, b = (torch.as_tensor(a).to(cuda)
+               for a in fixture.hashed_inputs(cfg))
+    stored = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "fixtures", "query_tf32_launch.npz"))
+    for tag, f32 in (("f32", True), ("bf16", False)):
+        udf, grad = tq.value_and_grad(x, w, b, cfg, f32_residuals=f32)
+        torch.cuda.synchronize()
+        for got, key in ((udf, f"udf_{tag}"), (grad[:3], f"grad_{tag}")):
+            want = torch.as_tensor(stored[key]).to(cuda)
+            assert torch.equal(got.contiguous().view(torch.int32),
+                               want.contiguous().view(torch.int32)), key
 
 
 def _train_conf(tmp_path, upsampling_type):

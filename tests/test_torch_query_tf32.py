@@ -250,3 +250,39 @@ def test_side_residuals_decode_the_kernels_slots(name):
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
             assert torch.equal(g, w.to(dtype).float())
+
+
+def test_stored_launch_agrees_with_the_plain_version():
+    """The launch of the 3xTF32 query kernel stored in
+    tests/fixtures/query_tf32_launch.npz (by scripts/torch_query_tf32_fixture.py
+    on an H100, which tests/test_torch_cuda.py holds later builds to bit for
+    bit) is of the inputs that script's integer hashes make here: its udf
+    and gradient with fp32 residuals lie within 1e-4 of the plain
+    version's (the gradient up to the abs head's sign where udf is within
+    that of 0), its bf16-residual udf equals its fp32-residual one (the
+    residuals touch only the gradient), and the inputs are the same on
+    every call."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "query_tf32_fixture",
+        os.path.join(root, "scripts", "torch_query_tf32_fixture.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    cfg = dataclasses.replace(tudf.UDFConfig(), precision="high")
+    first = fixture.hashed_inputs(cfg)
+    assert all(np.array_equal(a, c)
+               for a, c in zip(first, fixture.hashed_inputs(cfg)))
+    x, w, b = (torch.as_tensor(a) for a in first)
+    stored = np.load(os.path.join(root, "tests", "fixtures",
+                                  "query_tf32_launch.npz"))
+    u, g = tq.value_and_grad_plain(x, w, b, cfg)
+    su, sg = (torch.as_tensor(stored[k]) for k in ("udf_f32", "grad_f32"))
+    assert torch.equal(su, torch.as_tensor(stored["udf_bf16"]))
+    flip = (sg + g[:3]).abs().amax(0) < (sg - g[:3]).abs().amax(0)
+    assert not bool((u[flip] > 1e-4 * u.max()).any())
+    sg = torch.where(flip, -sg, sg)
+    assert float((su - u).abs().max() / u.abs().max()) < 1e-4
+    assert float((sg - g[:3]).abs().max() / g[:3].abs().max()) < 1e-4
