@@ -8,9 +8,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
      print each kernel's ptxas registers and spills, and count the
      tensor-core instructions in every kernel library's SASS: HGMMA
-     (wgmma; HGMMA.*.TF32 in mlp_query_tf32 and mlp_value_tf32) in
-     mlp_query_tf32, mlp_value_tf32, mlp_query_wgmma and mlp_train_wgmma,
-     HMMA (mma.sync) in the others;
+     (wgmma; HGMMA.*.TF32 in mlp_query_tf32, mlp_value_tf32 and
+     mlp_train_tf32) in mlp_query_tf32, mlp_value_tf32, mlp_train_tf32,
+     mlp_query_wgmma and mlp_train_wgmma, HMMA (mma.sync) in the others;
   3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
      against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
@@ -41,11 +41,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
      (bf16, bf16) pair runs on those of
      csrc/mlp_train_wgmma.cu, whose four launches (prologue, per-point,
      GEMM, reduce) get rows of their own likewise, with the GEMM's
-     library_ms (torch.bmm on the same bf16 factors); for each, the
-     mma.sync design it replaced (csrc/mlp_query.cu at the kernel's tier,
-     csrc/mlp_train.cu, csrc/mlp_value.cu at 3xTF32) and the wgmma kernels
-     are timed in turns (old, new, new, old), and the wgmma kernels must be
-     the faster;
+     library_ms (torch.bmm on the same bf16 factors); #2 at the 3xTF32 and
+     mixed (3xTF32 primal, bf16 adjoint) pairs runs on those of
+     csrc/mlp_train_tf32.cu (wgmma .tf32 and bf16 fed by TMA), whose
+     launches (the 3xTF32 pack, at the mixed pair the bf16 pack, per-point,
+     GEMM, reduce) get rows of their own likewise, the packs held bit for
+     bit, with the GEMM's library_ms (torch.bmm on the same factors: fp32
+     with TF32 off at the 3xTF32 pair, bf16 at the mixed one); for each,
+     the mma.sync design it replaced (csrc/mlp_query.cu at the kernel's
+     tier, csrc/mlp_train.cu at the kernel's pair, csrc/mlp_value.cu at
+     3xTF32) and the wgmma kernels are timed in turns (old, new, new, old),
+     and the wgmma kernels must be the faster;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it (its tiers: the training field query and the up-sampler at the bf16
      tier "default", extraction at "high"), train END_ITER steps at full
@@ -95,7 +101,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      through the 3xTF32 kernels, and from one copied state 2 x ROUTE_ITER
      of its steps as CUDA graph replays equal as many eager ones bit for
      bit; `field_precision = "high"` with
-     `bwd_precision = "default"` through #2 at that mixed pair;
+     `bwd_precision = "default"` through #2 at that mixed pair; each
+     kernel route's ms/step over chained calls of its step (CUDA graph
+     replays) from a copy of its state;
      `precision = "default"` extracts phase 6's field through the bf16
      grid and sweep kernels (one threshold, one fit), whose sliced
      value-and-gradient query is then held against its plain version;
@@ -151,7 +159,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it (a launch row of the wgmma kernels, named
 "mlp_value_and_grad/bf16:<launch>", "mlp_value/3xtf32:<launch>" or
-"mlp_train_bwd/bf16:<launch>", its wrapper row's): the main path (phases 4
+"mlp_train_bwd/<pair>:<launch>", its wrapper row's): the main path (phases 4
 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
 and ".../256^3"; phase 10's rows of tiers no path of the conf runs are
@@ -534,10 +542,10 @@ def same_bits(name, kern, args, ucfg) -> None:
 
 
 # The tensor-core instruction each library must hold: wgmma (HGMMA) in the
-# Hopper libraries (#1 at both tiers, #2's bf16 pair, #3 at 3xTF32),
+# Hopper libraries (#1 at both tiers, #2 at every pair, #3 at 3xTF32),
 # mma.sync (HMMA) in the others.
-WGMMA_LIBS = ("mlp_query_tf32", "mlp_query_wgmma", "mlp_train_wgmma",
-              "mlp_value_tf32")
+WGMMA_LIBS = ("mlp_query_tf32", "mlp_query_wgmma", "mlp_train_tf32",
+              "mlp_train_wgmma", "mlp_value_tf32")
 
 
 def tensor_core_sass(names) -> None:
@@ -661,12 +669,12 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
             "mlp_train_bwd", mlp_train.train_bwd, mlp_train.train_bwd_plain,
             bwd_blocks, (x, w, b, ubar, gbar), cfg,
             "emap_tpu_torch/csrc/mlp_train_wgmma.cu" if wgmma
-            else "emap_tpu_torch/csrc/mlp_train.cu",
+            else "emap_tpu_torch/csrc/mlp_train_tf32.cu",
             "emap_tpu/kernels/mlp_train.py:417",
             f32 * (8 * n + n + 8 * n) + 2 * pack_bytes,
             tuple(f * n for f in bwd_flops(cfg))))
-        if wgmma:
-            rows += wgmma_rows((x, w, b, ubar, gbar), cfg, rows[-1])
+        rows += (wgmma_rows if wgmma else train_tf32_rows)(
+            (x, w, b, ubar, gbar), cfg, rows[-1])
     for grid_x in grids:
         for tier in KERNEL_TIERS["mlp_value"]:
             cfg = at_tier(ucfg, tier)
@@ -719,17 +727,18 @@ def launch_times(fn, reps: int, names) -> dict:
 
 def gemm_library_ms(factors, ucfg) -> tuple:
     """(ms, form) of one PyTorch call computing the GEMM's function on the
-    same bf16 factors: torch.bmm over the layers, each layer's [R; Z-hat]
-    (out_l x 2N, zero-padded to the widest) against [Q-hat; U]^T, fp32
-    result where torch takes out_dtype (else a bf16 result). Timed here
-    only; the port never calls it."""
+    same factors: torch.bmm over the layers, each layer's [R; Z-hat]
+    (out_l x 2N, zero-padded to the widest) against [Q-hat; U]^T; for bf16
+    factors an fp32 result where torch takes out_dtype (else a bf16
+    result), for fp32 factors fp32 products with TF32 off (the port's
+    use_fp32_matmuls). Timed here only; the port never calls it."""
     import torch
 
     from emap_tpu_torch.kernels import mlp_train
 
     lay = mlp_train.wgmma_layout(ucfg)
     n = factors.shape[1]
-    a = torch.zeros(len(lay["dims"]), 256, 2 * n, dtype=torch.bfloat16,
+    a = torch.zeros(len(lay["dims"]), 256, 2 * n, dtype=factors.dtype,
                     device="cuda")
     bt = torch.zeros_like(a)
     for l, (i, o) in enumerate(lay["dims"]):
@@ -739,6 +748,10 @@ def gemm_library_ms(factors, ucfg) -> tuple:
             bt[l, :i, k * n: (k + 1) * n] = factors[
                 lay["rows"][rb][l]: lay["rows"][rb][l] + i]
     b = bt.transpose(1, 2)
+    if factors.dtype == torch.float32:
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls on")
+        ms, _ = time_ms(lambda: torch.bmm(a, b), 5)
+        return ms, "torch.bmm fp32 (TF32 off)"
     try:
         torch.bmm(a, b, out_dtype=torch.float32)
         form = "torch.bmm bf16 -> fp32 (out_dtype)"
@@ -747,6 +760,41 @@ def gemm_library_ms(factors, ucfg) -> tuple:
         form = "torch.bmm bf16 -> bf16 (no out_dtype in this torch)"
         ms, _ = time_ms(lambda: torch.bmm(a, b), 5)
     return ms, form
+
+
+def in_order(part):
+    """A kernel set's range or block partials summed in their order (the
+    reduce's order of the range partials)."""
+    out = part[0]
+    for k in range(1, part.shape[0]):
+        out = out + part[k]
+    return out
+
+
+def plain_reduce(parts, ucfg) -> tuple:
+    """The reduce launch's plain version: (W-bar, b-bar) as the in-order sums
+    of a kernel set's wpart and bpart, W-bar 0 outside every layer's
+    block."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_train
+
+    mask = torch.zeros_like(parts["wbar"], dtype=torch.bool)
+    off = 0
+    for i, o in mlp_train.wgmma_layout(ucfg)["dims"]:
+        mask[:o, off: off + i] = True
+        off += i
+    return (torch.where(mask, in_order(parts["wpart"]), 0.0),
+            in_order(parts["bpart"]))
+
+
+def grad_blocks(parts, ucfg, wbar, bbar=None) -> dict:
+    """blocks_of (wbar, bbar); without a bbar, W-bar's blocks beside a zero
+    b-bar (whose blocks agree with themselves)."""
+    import torch
+
+    return blocks_of((wbar, torch.zeros_like(parts["bbar"]) if bbar is None
+                      else bbar), ucfg)
 
 
 def wgmma_rows(args, ucfg, whole: dict) -> list:
@@ -773,28 +821,9 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
     costs = mlp_train.train_bwd_launch_costs(ucfg, n)
     times = launch_times(lambda: mlp_train.train_bwd_wgmma_parts(*args, ucfg),
                          5, tuple(WGMMA_LAUNCHES))
-    lay = mlp_train.wgmma_layout(ucfg)
-    dims = lay["dims"]
 
     def wblocks(wbar, bbar=None):
-        # W-bar alone: a zero b-bar's blocks agree with themselves
-        return blocks_of((wbar, torch.zeros_like(parts["bbar"]) if bbar is None
-                          else bbar), ucfg)
-
-    def in_order(part):
-        out = part[0]
-        for k in range(1, part.shape[0]):
-            out = out + part[k]
-        return out
-
-    def plain_reduce(p):
-        mask = torch.zeros_like(p["wbar"], dtype=torch.bool)
-        off = 0
-        for i, o in dims:
-            mask[:o, off: off + i] = True
-            off += i
-        return (torch.where(mask, in_order(p["wpart"]), 0.0),
-                in_order(p["bpart"]))
+        return grad_blocks(parts, ucfg, wbar, bbar)
 
     plain_ms = {
         "pack": time_ms(lambda: mlp_train.pack_weights_bf16(w, ucfg), 2)[0],
@@ -802,7 +831,7 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
             *args, ucfg), 2)[0],
         "gemm": time_ms(lambda: mlp_train.wbar_from_factors(
             parts["factors"], ucfg), 2)[0],
-        "reduce": time_ms(lambda: plain_reduce(parts), 2)[0],
+        "reduce": time_ms(lambda: plain_reduce(parts, ucfg), 2)[0],
     }
     factors, bbar = mlp_train.train_bwd_factors(*args, ucfg)
     wb_plain = mlp_train.pack_weights_bf16(w, ucfg)
@@ -813,11 +842,11 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
                     in_order(parts["bpart"])),
             wblocks(mlp_train.wbar_from_factors(factors, ucfg), bbar),
             BF16_KERNEL_RTOL),
-        "gemm": (wblocks(plain_reduce(parts)[0]),
+        "gemm": (wblocks(plain_reduce(parts, ucfg)[0]),
                  wblocks(mlp_train.wbar_from_factors(parts["factors"], ucfg)),
                  KERNEL_RTOL),
         "reduce": (wblocks(parts["wbar"], parts["bbar"]),
-                   wblocks(*plain_reduce(parts)), KERNEL_RTOL),
+                   wblocks(*plain_reduce(parts, ucfg)), KERNEL_RTOL),
     }
     lib_ms, lib_form = gemm_library_ms(parts["factors"], ucfg)
     rows = launch_rows(whole, WGMMA_LAUNCHES, times, plain_ms, held, costs,
@@ -835,13 +864,107 @@ def wgmma_rows(args, ucfg, whole: dict) -> list:
     return rows
 
 
+def train_tf32_rows(args, ucfg, whole: dict) -> list:
+    """#2 at a pair with a 3xTF32 tier on csrc/mlp_train_tf32.cu, launch by
+    launch, on the inputs of `whole` (their row as one function): each
+    launch's device time (torch.profiler), its bound from
+    train_tf32_launch_costs (each tier's FLOP at its peak), and its output
+    against the plain version of that launch on the same inputs: the packs
+    against pack_weights_tf32 and pack_weights_bf16, bit for bit; the
+    per-point kernel's factors through wbar_from_factors, and its bias
+    partials' sum, against the plain factors' (KERNEL_RTOL a block, or
+    BF16_KERNEL_RTOL at a bf16 tier); the GEMM's range partials in order
+    against wbar_from_factors of the kernel's own factors and the reduce
+    against the in-order sums of the partials (KERNEL_RTOL: fp32 sums in
+    another order). The GEMM's row has a library_ms. Then mlp_train.cu's
+    mma.sync design at the pair and these kernels timed in turns (old, new,
+    new, old)."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query, mlp_train
+
+    x, w = args[:2]
+    n = x.shape[1]
+    primal, adjoint = (mlp_query.kernel_tier(t) for t in (
+        ucfg.precision, ucfg.bwd_precision or ucfg.precision))
+    parts = mlp_train.train_bwd_tf32_parts(*args, ucfg)
+    torch.cuda.synchronize()
+    costs = mlp_train.train_tf32_launch_costs(ucfg, n)
+    launches = {"pack_tf32_kernel": "pack", "train_tf32_kernel": "per_point",
+                "wbar_kernel" if adjoint else "wbar_tf32_kernel": "gemm",
+                "reduce_kernel": "reduce"}
+    if parts["wb"] is not None:
+        launches["pack_kernel"] = "pack_bf16"
+    times = launch_times(lambda: mlp_train.train_bwd_tf32_parts(*args, ucfg),
+                         5, tuple(launches))
+    p3 = TF32_PEAK / TC_PASSES
+    tier_peak = (p3, BF16_PEAK)
+    peaks = {"per_point": (tier_peak[primal], tier_peak[adjoint]),
+             "gemm": tier_peak[adjoint]}
+
+    def wblocks(wbar, bbar=None):
+        return grad_blocks(parts, ucfg, wbar, bbar)
+
+    plain_ms = {
+        "pack": time_ms(lambda: mlp_query.pack_weights_tf32(w, ucfg), 2)[0],
+        "pack_bf16": time_ms(lambda: mlp_train.pack_weights_bf16(w, ucfg),
+                             2)[0],
+        "per_point": time_ms(lambda: mlp_train.train_bwd_factors(
+            *args, ucfg), 2)[0],
+        "gemm": time_ms(lambda: mlp_train.wbar_from_factors(
+            parts["factors"], ucfg), 2)[0],
+        "reduce": time_ms(lambda: plain_reduce(parts, ucfg), 2)[0],
+    }
+    factors, bbar = mlp_train.train_bwd_factors(*args, ucfg)
+    pack = mlp_query.pack_weights_tf32(w, ucfg)
+    check(torch.equal(parts["pack"], pack), f"{whole['name']}: the pack "
+          f"differs from pack_weights_tf32")
+    held = {  # launch: (got blocks, want blocks, tolerance)
+        "pack": ({"pack": parts["pack"]}, {"pack": pack}, 0.0),
+        "per_point": (
+            wblocks(mlp_train.wbar_from_factors(parts["factors"], ucfg),
+                    in_order(parts["bpart"])),
+            wblocks(mlp_train.wbar_from_factors(factors, ucfg), bbar),
+            BF16_KERNEL_RTOL if 1 in (primal, adjoint) else KERNEL_RTOL),
+        "gemm": (wblocks(plain_reduce(parts, ucfg)[0]),
+                 wblocks(mlp_train.wbar_from_factors(parts["factors"], ucfg)),
+                 KERNEL_RTOL),
+        "reduce": (wblocks(parts["wbar"], parts["bbar"]),
+                   wblocks(*plain_reduce(parts, ucfg)), KERNEL_RTOL),
+    }
+    if parts["wb"] is not None:
+        held["pack_bf16"] = ({"wb": parts["wb"].float()}, {
+            "wb": mlp_train.pack_weights_bf16(w, ucfg).float()}, 0.0)
+    lib_ms, lib_form = gemm_library_ms(parts["factors"], ucfg)
+    del factors
+    rows = launch_rows(whole, launches, times, plain_ms, held, costs,
+                       {"gemm": (lib_ms, lib_form)}, peak=p3, peaks=peaks)
+    del parts
+    torch.cuda.empty_cache()
+    tier = whole["tier"]
+    in_turns(whole, f"mma.sync {tier} (csrc/mlp_train.cu)",
+             lambda: mlp_train.train_bwd_mma_sync(*args, ucfg),
+             lambda: mlp_train.train_bwd_tf32_parts(*args, ucfg))
+    old = blocks_of(mlp_train.train_bwd_mma_sync(*args, ucfg), ucfg)
+    again = mlp_train.train_bwd_tf32_parts(*args, ucfg)
+    new = blocks_of((again["wbar"], again["bbar"]), ucfg)
+    del again
+    want = blocks_of(mlp_train.train_bwd_plain(*args, ucfg), ucfg)
+    print(f"kernel {whole['name']}: max rel err against the plain version "
+          f"{errors(old, want)[1]:.3e} (mma.sync), "
+          f"{errors(new, want)[1]:.3e} (wgmma)", flush=True)
+    return rows
+
+
 def launch_rows(whole, launches, times, plain_ms, held, costs,
-                library=None, peak=BF16_PEAK) -> list:
+                library=None, peak=BF16_PEAK, peaks=None) -> list:
     """A row for each launch of a kernel set (`launches`: its kernel's name
     in the profile -> launch), beside the row of the whole function: the
     launch's device time, its plain version's time and the bound from its
     cost (FLOP at `peak`: bf16 tensor cores, or TF32_PEAK / TC_PASSES for
-    the 3xTF32 kernels), its output held against that plain version
+    the 3xTF32 kernels; a launch in `peaks` at its own, and a cost's
+    `tier_flops` each at its tier's peak there), its output held against
+    that plain version
     (held[launch]: got blocks, want blocks, tolerance), the side arrays'
     bytes where it moves any, the weight chunks its blocks stream from L2
     where it reckons them, and a library call's time where `library` names
@@ -854,7 +977,10 @@ def launch_rows(whole, launches, times, plain_ms, held, costs,
         got, want, tol = held[launch]
         abs_err, rel_err, worst = errors(got, want)
         cost = costs[launch]
-        t_bytes, t_ops = cost["bytes"] / HBM_RATE, cost["flops"] / peak
+        at = (peaks or {}).get(launch, peak)
+        t_ops = (sum(f / p for f, p in zip(cost["tier_flops"], at))
+                 if "tier_flops" in cost else cost["flops"] / at)
+        t_bytes = cost["bytes"] / HBM_RATE
         lib_ms, lib_form = library.get(launch, (None, ""))
         row = dict(whole, name=f"{whole['name']}:{launch}",
                    part_of=whole["name"], max_abs_err=abs_err,
@@ -1918,6 +2044,28 @@ TRAIN_ROUTES = (
 )
 
 
+def replay_ms(runner, calls: int = 2) -> float:
+    """ms a step of the runner's step as CUDA graph replays: from a copy of
+    its state, one chained call of ROUTE_ITER steps (a warm-up step, the
+    capture, replays), then `calls` more timed (replays alone)."""
+    import torch
+
+    from emap_tpu_torch.train.step import build_chained_train_step
+
+    st = copied_state(runner)
+    chained = build_chained_train_step(runner.tcfg, runner.rcfg, runner.ucfg,
+                                       runner.scene.n_images, ROUTE_ITER)
+    chained(st, runner.pool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        chained(st, runner.pool)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (calls * ROUTE_ITER)
+    chained.release()
+    return ms
+
+
 def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
                 sweep_n: int) -> dict:
     """Phase 9: the routes the tier keys select, each through the CLI with
@@ -1955,6 +2103,10 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
               f"{name} ran {got}, not {keys} once a step")
         for k in keys:
             row_of[k]["launches"] = row_of[k]["launches"] or launches[k]
+        if route == "kernels":
+            print(f"route {name}: {replay_ms(runner):.2f} ms/step as CUDA "
+                  f"graph replays (chains of {ROUTE_ITER}) on {smi}",
+                  flush=True)
         if name == "field_high":
             # #1a's 3xTF32 kernel in the step's CUDA graph
             chained, _ = replays_equal_eager(runner, runner.rcfg, ROUTE_ITER,

@@ -1,7 +1,8 @@
 // The 3xTF32 machinery of the wgmma field kernels (mlp_query_tf32.cu,
-// mlp_value_tf32.cu): the pre-split weight pack and its layout, the fp32
-// activation tile, the A fragments split in registers, `wgmma .tf32` with A
-// from registers, and the TMA load of a ring entry. sm_90a only.
+// mlp_value_tf32.cu, mlp_train_tf32.cu): the pre-split weight pack and its
+// layout, the fp32 activation tile, the A fragments split in registers,
+// `wgmma .tf32` with A from registers, and the TMA load of a ring entry.
+// sm_90a only.
 //
 // The pack (pack_tf32_kernel) holds each hidden layer's W (forward block:
 // out rows x in columns) and, for the query's reverse products, W^T

@@ -12,11 +12,11 @@
 // forward recompute and the gradient chain run at the primal tier TP
 // (cfg.precision), the ascend and descend products and both weight-gradient
 // outer products at the adjoint tier TA (bwd_precision or precision).
-// The (BF16, BF16) pair every shipped conf trains at is no longer on the
-// training path: kernels/mlp_train.py::train_bwd sends it to
-// mlp_train_wgmma.cu (wgmma and TMA); its instantiation here is reached
-// only by train_bwd_mma_sync, which chip_smoke.py times beside it. This
-// file runs the 3xTF32 pair and the mixed ones.
+// No pair is on the training path any more: kernels/mlp_train.py::
+// train_bwd sends the (BF16, BF16) pair every shipped conf trains at to
+// mlp_train_wgmma.cu and the others to mlp_train_tf32.cu (wgmma and TMA);
+// every instantiation here is reached only by train_bwd_mma_sync, which
+// chip_smoke.py times beside them.
 //
 // Bound on the H100: operations. 12 * sum(in_l * out_l) - 4 * in_0 * out_0
 // FLOP a point (5.44 MFLOP at ABC width: forward, gradient chain, ascend,

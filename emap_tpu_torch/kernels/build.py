@@ -20,7 +20,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
 SOURCES = ("mlp_query", "mlp_query_tf32", "mlp_query_wgmma", "mlp_train",
-           "mlp_train_wgmma", "mlp_value", "mlp_value_tf32")
+           "mlp_train_tf32", "mlp_train_wgmma", "mlp_value", "mlp_value_tf32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,7 +11,9 @@ rounds (ablations in turns). Only the kernels whose sources an ablation
 changes are timed for it (all of them for as_built): the training kernels
 at the training step's shape (ABC width, 116,736 points), forward (#1a:
 mlp_query.cu's mma.sync design, value_and_grad_mma_sync) and backward (#2,
-mlp_train.cu, with its two main kernels from torch.profiler), and the grid
+mlp_train.cu's mma.sync design, train_bwd_mma_sync, with its two main
+kernels from torch.profiler, and mlp_train_tf32.cu's wgmma one at the
+3xTF32 and mixed pairs, with its per-point and GEMM kernels), and the grid
 value kernel (#3: mlp_value.cu's mma.sync design, value_mma_sync, and
 mlp_value_tf32.cu's wgmma one, with its two launches from torch.profiler)
 at a 128^3 grid pass (2,097,152 points).
@@ -35,6 +37,8 @@ max and mean error against the plain version (the gradient against the
 plain version given the kernel's own residuals with bf16 ones:
 kernels/mlp_query.py::side_residuals). The value_tf32_* ablations patch
 #3's 3xTF32 kernel (mlp_value_tf32.cu), timed at a 128^3 grid pass.
+The train_tf32_* ablations patch #2's kernels at the pairs with a
+3xTF32 tier (mlp_train_tf32.cu), timed at the 3xTF32 and mixed pairs.
 Ablations that drop work give wrong
 results by
 design: they measure what that work costs. The card's name and power
@@ -446,7 +450,7 @@ ABLATIONS.update({
         "        if (row < 0)\n"
         "          tma_store(&mf, nxt + b * BOX_BYTES, (int)p0, row + 64 * b);")]},
     # the chain products' (mlp_wgmma.cuh, shared with #1a's wgmma kernel)
-    # and the GEMM's
+    # and the GEMM's (mlp_train_gemm.cuh, shared with the mixed pair's)
     "wgmma_no_promotion": {
         "mlp_wgmma.cuh": [
             ("""      wgmma_m64n128<1, TB>(part, desc_mnmajor(a, s),
@@ -454,7 +458,7 @@ ABLATIONS.update({
              """      wgmma_m64n128<1, TB>(acc, desc_mnmajor(a, s),
                            TB ? desc_mnmajor(b, s) : desc_kmajor(b, s), 1);"""),
             NO_PROMOTION_ADD],
-        "mlp_train_wgmma.cu": [
+        "mlp_train_gemm.cuh": [
             ("""      wgmma_m64n128<0, 0>(part, desc_kmajor(b + cw * BOX_BYTES, s),
                           desc_kmajor(b + 2 * BOX_BYTES, s), s);""",
              """      wgmma_m64n128<0, 0>(acc, desc_kmajor(b + cw * BOX_BYTES, s),
@@ -784,6 +788,46 @@ struct VArgs {"""),
 # The libraries an ablation is timed on where not every library its
 # patches reach: p128's tile does not fit the training kernels' shared
 # memory; the patches of mlp_tf32.cuh are #1's ablations.
+# #2's kernels at the pairs with a 3xTF32 tier (mlp_train_tf32.cu), timed
+# at the 3xTF32 and mixed pairs: the weight-gradient factors not stored
+# (the GEMM then reads stale scratch: what the factor stores cost), the
+# side arrays' traffic taken out (no store; constant sigmoids, carries and
+# s-hats read), their L2 prefetch taken out, and the forward epilogue's
+# softplus and sigmoid replaced by a scale and a constant (each but the
+# prefetch: wrong results by design, what that work costs), and the factor
+# stores' addresses as 32-bit offsets (the same results).
+TRAIN_TF32_SIDE = tuple(
+    (f"{lhs} = side_get(side({arg}), h, j, t);",
+     f"{lhs} = make_float4(0.5f, 0.5f, 0.5f, 0.5f);")
+    for lhs, arg in (("if (live) sv", "l - 1, 0"), ("cv", "l, 1"),
+                     ("sv", "l, 0"), ("sv", "l - 1, 0"), ("hv", "l - 1, 1")))
+ABLATIONS.update({
+    "train_tf32_no_factor_stores": {"mlp_train_tf32.cu": [(
+        '::"l"(p), "f"(v), "r"((int)keep));', '::"l"(p), "f"(v), "r"(0));')]},
+    "train_tf32_no_side": {"mlp_train_tf32.cu": list(TRAIN_TF32_SIDE) + [(
+        "        side_put(side(", "        if (lane > 32) side_put(side(")]},
+    "train_tf32_no_prefetch": {"mlp_train_tf32.cu": [(
+        "    if (t == 0)\n      l2_prefetch(", "    if (t > WG)\n      l2_prefetch(")]},
+    "train_tf32_no_epilogue_math": {"mlp_train_tf32.cu": [(
+        "        sig_softplus100(acc[4 * j + e] + bias, sg[e], act[e]);",
+        "        sg[e] = 0.5f;\n"
+        "        act[e] = (acc[4 * j + e] + bias) * 0.01f;")]},
+    # the factor stores addressed by a 32-bit offset from a 64-bit row
+    # base in place of a 64-bit address each (fewer live 64-bit values in
+    # the epilogues; same results)
+    "train_tf32_offsets32": {"mlp_train_tf32.cu": [(
+        """    auto* r0 = fac + (size_t)(row + f0) * ld + pr;
+    st_if(r0, v[0], keep0);
+    st_if(r0 + 8, v[2], keep0);
+    st_if(r0 + ld, v[1], keep1);
+    st_if(r0 + ld + 8, v[3], keep1);""",
+        """    auto* base = fac + (size_t)row * ld;
+    const unsigned o = (unsigned)f0 * (unsigned)ld + (unsigned)pr;
+    st_if(base + o, v[0], keep0);
+    st_if(base + (o + 8u), v[2], keep0);
+    st_if(base + (o + (unsigned)ld), v[1], keep1);
+    st_if(base + (o + (unsigned)ld + 8u), v[3], keep1);""")]},
+})
 TIMED = {"p128": ("mlp_value",), "query_tf32_no_split": ("mlp_query_tf32",),
          "query_tf32_half_stream": ("mlp_query_tf32",)}
 
@@ -875,6 +919,9 @@ def main(argv) -> int:
     bwd_p = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, cfg), cfg)
     bf16 = dataclasses.replace(cfg, precision="default")
     bwd_bf = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, bf16),
+                               cfg)
+    mixed = dataclasses.replace(cfg, bwd_precision="default")
+    bwd_mx = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, mixed),
                                cfg)
     ug_p = tq.value_plain(xg, w, b, cfg)
     q_bf = tq.value_and_grad_plain(x, w, b, bf16)
@@ -1018,20 +1065,48 @@ def main(argv) -> int:
                           f"err udf/grad {worst:.2e}, mean {mean:.2e}"
                           f"{same(name, '1a bf16', out)}", flush=True)
                 if "mlp_train" in libs:
-                    out = tt.train_bwd(x, w, b, ub, gb, cfg)
-                    bwd = tq.unpack_weights(*out, cfg)
-                    worst = max(rel(a, c) for got, want in zip(bwd, bwd_p)
-                                for a, c in zip(got, want))
-                    bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, cfg))
-                    parts = launch_ms(lambda: tt.train_bwd(x, w, b, ub, gb,
-                                                           cfg))
-                    print(f"round {rnd} {name:20s} #2  {bwd_ms:8.3f} ms "
-                          f"(per_point "
-                          f"{parts.get('per_point_kernel', 0.0):.3f}, "
-                          f"wbar_partials "
-                          f"{parts.get('wbar_partials_kernel', 0.0):.3f})  "
-                          f"max rel err wbar {worst:.2e}"
-                          f"{same(name, '2', out)}", flush=True)
+                    for pair, c, want_p in (("3xtf32", cfg, bwd_p),
+                                            ("3xtf32+bf16", mixed, bwd_mx)):
+                        out = tt.train_bwd_mma_sync(x, w, b, ub, gb, c)
+                        bwd = tq.unpack_weights(*out, cfg)
+                        worst = max(rel(a, e) for got, want in zip(bwd, want_p)
+                                    for a, e in zip(got, want))
+                        bwd_ms = ms(lambda: tt.train_bwd_mma_sync(
+                            x, w, b, ub, gb, c))
+                        parts = launch_ms(lambda: tt.train_bwd_mma_sync(
+                            x, w, b, ub, gb, c))
+                        tag = "" if pair == "3xtf32" else " " + pair
+                        print(f"round {rnd} {name:20s} #2{tag} mma.sync "
+                              f"{bwd_ms:8.3f} ms (per_point "
+                              f"{parts.get('per_point_kernel', 0.0):.3f}, "
+                              f"wbar_partials "
+                              f"{parts.get('wbar_partials_kernel', 0.0):.3f}, "
+                              f"reduce "
+                              f"{parts.get('reduce_partials_kernel', 0.0):.3f})"
+                              f"  max rel err wbar {worst:.2e}"
+                              f"{same(name, '2 mma.sync' + tag, out)}",
+                              flush=True)
+                if "mlp_train_tf32" in libs:
+                    for pair, c, want_p in (("3xtf32", cfg, bwd_p),
+                                            ("3xtf32+bf16", mixed, bwd_mx)):
+                        out = tt.train_bwd(x, w, b, ub, gb, c)
+                        bwd = tq.unpack_weights(*out, cfg)
+                        worst = max(rel(a, e) for got, want in zip(bwd, want_p)
+                                    for a, e in zip(got, want))
+                        bwd_ms = ms(lambda: tt.train_bwd(x, w, b, ub, gb, c))
+                        parts = launch_ms(lambda: tt.train_bwd(x, w, b, ub,
+                                                               gb, c))
+                        gemm = parts.get("wbar_tf32_kernel",
+                                         parts.get("wbar_kernel", 0.0))
+                        print(f"round {rnd} {name:20s} #2 {pair} wgmma "
+                              f"{bwd_ms:8.3f} ms (per_point "
+                              f"{parts.get('train_tf32_kernel', 0.0):.3f}, "
+                              f"wbar {gemm:.3f}, reduce "
+                              f"{parts.get('reduce_kernel', 0.0):.3f}, packs "
+                              f"{parts.get('pack_tf32_kernel', 0.0):.3f} / "
+                              f"{parts.get('pack_kernel', 0.0):.3f})  max rel "
+                              f"err wbar {worst:.2e}"
+                              f"{same(name, '2 ' + pair, out)}", flush=True)
                 if "mlp_train_wgmma" in libs:
                     out = tt.train_bwd(x, w, b, ub, gb, bf16)
                     bwd = tq.unpack_weights(*out, cfg)

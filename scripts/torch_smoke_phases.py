@@ -8,6 +8,7 @@ that are slow to reach or need repeating:
     python3 scripts/torch_smoke_phases.py parallel     # phase 12
     python3 scripts/torch_smoke_phases.py ranks        # its multi-rank runs
     python3 scripts/torch_smoke_phases.py public       # phase 13
+    python3 scripts/torch_smoke_phases.py routes       # phase 9's step times
 
 `graph` trains the smoke conf's 20 steps through the CLI (phase 4) and
 runs phase 8 (CUDA graph replays against eager steps, bit for bit) N
@@ -24,7 +25,11 @@ CLI runs). `ranks` runs only those multi-rank CLI runs (2 and 4 ranks
 against one process), so that a four-card machine's time goes to what
 needs four cards. `public` runs phase 13 (the JAX package's last public
 functions: a thick-line PidiNet scene trained on at Replica width,
-udf_gradient, get_flow_vis, semantic_color_map, no cv2).
+udf_gradient, get_flow_vis, semantic_color_map, no cv2). `routes` trains
+each of phase 9's kernel routes (the smoke conf with its tier keys pinned)
+through the CLI and times its step as CUDA graph replays three times
+(chip_smoke.py: replay_ms); run it from two checkouts in turns to compare
+their kernels' step time.
 A failed check is printed and the run goes on; the exit code is 1 if any
 failed. Run from the repository root; needs the card.
 """
@@ -169,6 +174,26 @@ def public(tmp: str, smi: str) -> bool:
                    lambda: cs.public_functions_phase(tmp, ucfg, smi))
 
 
+def routes(tmp: str, smi: str) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from emap_tpu_torch import cli
+
+    conf_path = cs.write_run_conf(tmp)
+    for name, pins, route, _ in cs.TRAIN_ROUTES:
+        if route != "kernels":
+            continue
+        runner = cli.main(["--conf", cs.route_conf(conf_path, tmp, name, pins),
+                           "--mode", "train"], n_devices=1)
+        times = [cs.replay_ms(runner) for _ in range(3)]
+        print(f"route {name}: {times} ms/step as CUDA graph replays (chains "
+              f"of {cs.ROUTE_ITER}) on {smi}", flush=True)
+        del runner
+        torch.cuda.empty_cache()
+    return True
+
+
 def main() -> int:
     import torch
 
@@ -197,9 +222,12 @@ def main() -> int:
             ok = ranks(tmp, smi)
         elif what == "public":
             ok = public(tmp, smi)
+        elif what == "routes":
+            ok = routes(tmp, smi)
         else:
             raise SystemExit(f"unknown phase set {what!r}: graph, "
-                             "determinism, confs, parallel, ranks or public")
+                             "determinism, confs, parallel, ranks, public or "
+                             "routes")
     return 0 if ok else 1
 
 

@@ -346,7 +346,8 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
                                  "mlp_train_wgmma", "mlp_query_wgmma",
-                                 "mlp_query_tf32", "mlp_value_tf32"])
+                                 "mlp_query_tf32", "mlp_value_tf32",
+                                 "mlp_train_tf32"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     """Each kernel library's SASS holds tensor-core instructions: HMMA
     (mma.sync), or HGMMA (wgmma) in the wgmma libraries."""
@@ -838,6 +839,183 @@ def test_cuda_query_tf32_equals_its_stored_launch(cuda):
             want = torch.as_tensor(stored[key]).to(cuda)
             assert torch.equal(got.contiguous().view(torch.int32),
                                want.contiguous().view(torch.int32)), key
+
+
+# #2 at the pairs with a 3xTF32 tier (csrc/mlp_train_tf32.cu) against
+# train_bwd_plain at the same pair, each W-bar / b-bar block against its own
+# largest entry: TF32_RTOL at the 3xTF32 pair, WGMMA_RTOL with a bf16 tier,
+# whose mean error must also sit BF16_SEPARATION times nearer the pair's
+# plain version than the fp32 one.
+TRAIN_TF32_PAIRS = {"3xtf32": ("high", ""), "3xtf32+bf16": ("high", "default"),
+                    "bf16+3xtf32": ("default", "high")}
+
+
+def _train_tf32_held(got, x, w, b, ubar, gbar, cfg):
+    want = _bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar, cfg), cfg)
+    got = _bwd_blocks(got, cfg)
+    bf16 = "default" in (cfg.precision, cfg.bwd_precision)
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all()), i
+        assert max_rel(g, wt) < (WGMMA_RTOL if bf16 else TF32_RTOL), i
+    if bf16:
+        want32 = _bwd_blocks(tt.train_bwd_plain(x, w, b, ubar, gbar,
+                                                dataclasses.replace(
+                                                    cfg, precision="high",
+                                                    bwd_precision="")), cfg)
+        assert BF16_SEPARATION * max(
+            mean_rel(g, wt) for g, wt in zip(got, want)) < max(
+            mean_rel(g, w32) for g, w32 in zip(got, want32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4160])
+@pytest.mark.parametrize("pair", list(TRAIN_TF32_PAIRS))
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_train_tf32_matches_plain(cuda, name, pair, n):
+    """train_bwd at each pair with a 3xTF32 tier launches
+    csrc/mlp_train_tf32.cu: held against train_bwd_plain at that pair per
+    block, two launches bit-identical, two launches counted under the
+    pair's name and no other. n = 4160 is 65 blocks of 64 points, not a
+    multiple of the GEMM's point ranges' 64-point rounding."""
+    precision, bwd = TRAIN_TF32_PAIRS[pair]
+    cfg = dataclasses.replace(CFGS[name], precision=precision,
+                              bwd_precision=bwd)
+    x, ubar, gbar = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tt.train_bwd.tier_launches)
+    runs = [tt.train_bwd(x, w, b, ubar, gbar, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tt.train_bwd.tier_launches == dict(before,
+                                              **{pair: before[pair] + 2})
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    _train_tf32_held(runs[0], x, w, b, ubar, gbar, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["3xtf32", "3xtf32+bf16"])
+@pytest.mark.parametrize("name", ["abc", "replica"])
+def test_cuda_train_tf32_at_step_n(cuda, name, pair):
+    """At the training step's N = 116,736 points, ABC and Replica width:
+    the kernels against train_bwd_plain at the pair per block, and
+    bit-identical across two launches."""
+    precision, bwd = TRAIN_TF32_PAIRS[pair]
+    cfg = dataclasses.replace(CFGS[name], precision=precision,
+                              bwd_precision=bwd)
+    x, ubar, gbar = points(116_736, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    runs = [tt.train_bwd(x, w, b, ubar, gbar, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    _train_tf32_held(runs[0], x, w, b, ubar, gbar, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(TRAIN_TF32_PAIRS))
+@pytest.mark.parametrize("name", list(CFGS))
+def test_cuda_train_tf32_launches_and_plan(cuda, name, pair):
+    """Each launch against its plain version: the 3xTF32 pack equals
+    pack_weights_tf32 and the bf16 one pack_weights_bf16, bit for bit; the
+    per-point kernel's factors contracted in fp32 (wbar_from_factors) and
+    its bias partials' sum against the plain factors' (the pair's
+    tolerance); the GEMM's range partials in order against the plain
+    contraction of the kernel's own factors (the 3xTF32 GEMM's sum order,
+    wbar_tf32_from_factors, or the bf16 one's fp32 sums: TF32_RTOL); the
+    reduce against the in-order sums of the partials (TF32_RTOL). The
+    library reckons a launch's scratch and shared memory as
+    train_tf32_plan, and the mma.sync twin still matches the plain
+    version. Neither counts a launch."""
+    precision, bwd = TRAIN_TF32_PAIRS[pair]
+    cfg = dataclasses.replace(CFGS[name], precision=precision,
+                              bwd_precision=bwd)
+    n = 4160
+    x, ubar, gbar = points(n, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tt.train_bwd.tier_launches)
+    parts = tt.train_bwd_tf32_parts(x, w, b, ubar, gbar, cfg)
+    twin = tt.train_bwd_mma_sync(x, w, b, ubar, gbar, cfg)
+    torch.cuda.synchronize()
+    assert tt.train_bwd.tier_launches == before
+    assert torch.equal(parts["pack"], tq.pack_weights_tf32(w, cfg))
+    if pair == "3xtf32":
+        assert parts["wb"] is None
+    else:
+        assert torch.equal(parts["wb"], tt.pack_weights_bf16(w, cfg))
+    tol = TF32_RTOL if pair == "3xtf32" else WGMMA_RTOL
+
+    def in_order(part):
+        out = part[0]
+        for k in range(1, part.shape[0]):
+            out = out + part[k]
+        return out
+
+    factors, bbar = tt.train_bwd_factors(x, w, b, ubar, gbar, cfg)
+    zero_b = torch.zeros_like(parts["bbar"])
+    got = _bwd_blocks((tt.wbar_from_factors(parts["factors"], cfg),
+                       in_order(parts["bpart"])), cfg)
+    want = _bwd_blocks((tt.wbar_from_factors(factors, cfg), bbar), cfg)
+    assert parts["factors"].dtype == factors.dtype
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert max_rel(g, wt) < tol, i
+    plain_gemm = (tt.wbar_tf32_from_factors if bwd != "default"
+                  else tt.wbar_from_factors)(parts["factors"], cfg)
+    lay = tt.wgmma_layout(cfg)
+    mask = torch.zeros_like(parts["wbar"], dtype=torch.bool)
+    off = 0
+    for i, o in lay["dims"]:
+        mask[:o, off: off + i] = True
+        off += i
+    reduced = torch.where(mask, in_order(parts["wpart"]), 0.0)
+    for i, (g, wt) in enumerate(zip(_bwd_blocks((reduced, zero_b), cfg),
+                                    _bwd_blocks((plain_gemm, zero_b), cfg))):
+        assert max_rel(g, wt) < TF32_RTOL, i
+    for g, wt in zip(_bwd_blocks((parts["wbar"], parts["bbar"]), cfg),
+                     _bwd_blocks((reduced, in_order(parts["bpart"])), cfg)):
+        assert max_rel(g, wt) < TF32_RTOL
+    plan = tt.train_tf32_plan(cfg, n)
+    assert tt.train_tf32_sizes(cfg, n) == {
+        "pack": plan["pack"], "wb": plan["wb"], "frows": plan["frows"],
+        "side": plan["side"], "partials": plan["partials"],
+        "per_point_smem": plan["smem"]["per_point"],
+        "gemm_smem": plan["smem"]["gemm"], "blocks": plan["blocks"]}
+    _train_tf32_held(twin, x, w, b, ubar, gbar, cfg)
+
+
+def _train_fixture_script():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "torch_train_wgmma_fixture.py")
+    spec = importlib.util.spec_from_file_location("train_wgmma_fixture",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_train_wgmma_equals_its_stored_launch(cuda):
+    """#2's wgmma kernels at the (bf16, bf16) pair, whose GEMM and reduce
+    moved into csrc/mlp_train_gemm.cuh, give the W-bar and b-bar their
+    build before the move gave on the same inputs, bit for bit: the
+    integer-hashed inputs of scripts/torch_train_wgmma_fixture.py at ABC
+    width (tests/fixtures/train_wgmma_launch.npz, stored by that script
+    from the earlier build on an H100)."""
+    fixture = _train_fixture_script()
+    cfg = dataclasses.replace(tudf.UDFConfig(), precision="default")
+    args = [torch.as_tensor(a).to(cuda) for a in fixture.hashed_inputs(cfg)]
+    stored = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "fixtures", "train_wgmma_launch.npz"))
+    wbar, bbar = tt.train_bwd(*args, cfg)
+    torch.cuda.synchronize()
+    for got, key in ((wbar, "wbar"), (bbar, "bbar")):
+        want = torch.as_tensor(stored[key]).to(cuda)
+        assert torch.equal(got.contiguous().view(torch.int32),
+                           want.contiguous().view(torch.int32)), key
 
 
 def _train_conf(tmp_path, upsampling_type):
