@@ -6,11 +6,13 @@
 Phases, each fatal on failure (nonzero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from emap_tpu_torch/csrc with nvcc, in parallel,
-     print each kernel's ptxas registers and spills, and count the
+     print each kernel's ptxas registers and spills, hold the value
+     kernels' planned registers against ptxas' report (no spill), count the
      tensor-core instructions in every kernel library's SASS: HGMMA
      (wgmma; HGMMA.*.TF32 in mlp_query_tf32, mlp_value_tf32 and
      mlp_train_tf32) in mlp_query_tf32, mlp_value_tf32, mlp_train_tf32,
-     mlp_query_wgmma and mlp_train_wgmma, HMMA (mma.sync) in the others;
+     mlp_query_wgmma, mlp_train_wgmma and mlp_value_wgmma, HMMA (mma.sync)
+     in the others;
   3. hold each kernel, at each matmul tier a path runs it at (KERNEL_TIERS),
      against its plain PyTorch version at that tier on the card, output
      block by block, and time both at the shapes its path gives it, beside
@@ -37,7 +39,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
      bf16 rounding of the plain sigmoids); #3 at the 3xTF32 tier runs on
      csrc/mlp_value_tf32.cu (wgmma .tf32 fed by TMA), whose two launches
      (prologue, value kernel) get rows of their own likewise at both grid
-     shapes, the prologue's forward-only pack held bit for bit; #2 at the
+     shapes, the prologue's forward-only pack held bit for bit; #3 at the
+     bf16 tier runs on csrc/mlp_value_wgmma.cu (wgmma fed by TMA), whose
+     two launches (prologue, value kernel) get rows of their own likewise
+     at both grid shapes, the prologue's bf16 pack held bit for bit, and
+     a log line with the design's reckoned floors (products, the
+     softplus's special-function operations) and the plan's weight chunks
+     from L2 over the launch's time; #2 at the
      (bf16, bf16) pair runs on those of
      csrc/mlp_train_wgmma.cu, whose four launches (prologue, per-point,
      GEMM, reduce) get rows of their own likewise, with the GEMM's
@@ -50,8 +58,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
      with TF32 off at the 3xTF32 pair, bf16 at the mixed one); for each,
      the mma.sync design it replaced (csrc/mlp_query.cu at the kernel's
      tier, csrc/mlp_train.cu at the kernel's pair, csrc/mlp_value.cu at
-     3xTF32) and the wgmma kernels are timed in turns (old, new, new, old),
-     and the wgmma kernels must be the faster;
+     the kernel's tier) and the wgmma kernels are timed in turns (old, new,
+     new, old), and the wgmma kernels must be the faster;
   4. write a synthetic cube scene and a copy of confs/ABC.conf pointing at
      it (its tiers: the training field query and the up-sampler at the bf16
      tier "default", extraction at "high"), train END_ITER steps at full
@@ -105,8 +113,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      kernel route's ms/step over chained calls of its step (CUDA graph
      replays) from a copy of its state;
      `precision = "default"` extracts phase 6's field through the bf16
-     grid and sweep kernels (one threshold, one fit), whose sliced
-     value-and-gradient query is then held against its plain version;
+     grid and sweep kernels (one threshold, one fit), after which the bf16
+     grid kernel's masks on that field are held against the plain
+     version's as phase 6 holds them, and the sliced value-and-gradient
+     query against its plain version;
  10. confs/Replica.conf's field at full width (multires 6: the encoded
      input 39 wide, padded to 40; the skip layer takes 217 + 39 inputs):
      the rows of phase 3 at that width, at both tiers (the grid value
@@ -158,7 +168,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
      shapes and dtypes; and cv2 absent from sys.modules.
 Each kernel row's `launches` is its kernel and tier's count in the run of
 the path that runs it (a launch row of the wgmma kernels, named
-"mlp_value_and_grad/bf16:<launch>", "mlp_value/3xtf32:<launch>" or
+"mlp_value_and_grad/bf16:<launch>", "mlp_value/<tier>:<launch>" or
 "mlp_train_bwd/<pair>:<launch>", its wrapper row's): the main path (phases 4
 and 6), a phase 9 run, or
 the Replica and DTU paths of phases 10 and 11 (rows named ".../multires6"
@@ -542,10 +552,29 @@ def same_bits(name, kern, args, ucfg) -> None:
 
 
 # The tensor-core instruction each library must hold: wgmma (HGMMA) in the
-# Hopper libraries (#1 at both tiers, #2 at every pair, #3 at 3xTF32),
-# mma.sync (HMMA) in the others.
+# Hopper libraries (#1, #2 and #3 at every tier), mma.sync (HMMA) in the
+# others.
 WGMMA_LIBS = ("mlp_query_tf32", "mlp_query_wgmma", "mlp_train_tf32",
-              "mlp_train_wgmma", "mlp_value_tf32")
+              "mlp_train_wgmma", "mlp_value_tf32", "mlp_value_wgmma")
+
+
+def plan_registers(ucfg) -> None:
+    """The registers a thread that value_tf32_plan and value_wgmma_plan
+    give their kernels as compiled, held against ptxas' report of this
+    build; fail if they differ or a byte spills."""
+    from emap_tpu_torch.kernels import build, mlp_query
+
+    for lib, kernel, plan in (
+            ("mlp_value_tf32", "value_tf32_kernel", mlp_query.value_tf32_plan),
+            ("mlp_value_wgmma", "value_wgmma_kernel",
+             mlp_query.value_wgmma_plan)):
+        report = build.parse_ptxas(build.build_log(lib))
+        got = [v for k, v in report.items() if kernel in k]
+        want = {"registers": plan(ucfg, GRID_N)["registers"]["compiled"],
+                "spill_bytes": 0}
+        check(got == [want], f"{lib}: ptxas reports {got} for {kernel}, "
+              f"the plan {want}")
+        print(f"ptxas {lib}: {kernel} as its plan: {want}", flush=True)
 
 
 def tensor_core_sass(names) -> None:
@@ -640,7 +669,7 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
         return kernel_row("mlp_value", mlp_query.value, mlp_query.value_plain,
                           value_blocks, (points, w, b), cfg,
                           "emap_tpu_torch/csrc/mlp_value_tf32.cu" if tf32
-                          else "emap_tpu_torch/csrc/mlp_value.cu",
+                          else "emap_tpu_torch/csrc/mlp_value_wgmma.cu",
                           "emap_tpu/kernels/mlp_query.py:328",
                           f32 * (8 * count + count) + pack_bytes,
                           (mlp_query.value_flops(cfg) * count, 0))
@@ -681,8 +710,9 @@ def kernel_phase(ucfg, n: int, grid_shapes=(GRID_N,)) -> list:
             same_bits("mlp_value", lambda *a: (mlp_query.value(*a),),
                       (grid_x, w, b), cfg)
             rows.append(value_row(grid_x, cfg))
-            if mlp_query.kernel_tier(cfg.precision) == 0:
-                rows += value_tf32_rows((grid_x, w, b), cfg, rows[-1])
+            rows += (value_tf32_rows if mlp_query.kernel_tier(
+                cfg.precision) == 0 else value_wgmma_rows)(
+                (grid_x, w, b), cfg, rows[-1])
     return rows
 
 
@@ -1238,6 +1268,87 @@ def value_tf32_rows(args, ucfg, whole: dict) -> list:
     in_turns(whole, "mma.sync 3xTF32 (csrc/mlp_value.cu)",
              lambda: mlp_query.value_mma_sync(*args, ucfg),
              lambda: mlp_query.value_tf32_parts(*args, ucfg))
+    old = {"udf": mlp_query.value_mma_sync(*args, ucfg)}
+    print(f"kernel {whole['name']}: max rel err against the plain version "
+          f"{errors(old, want)[1]:.3e} (mma.sync), "
+          f"{errors({'udf': parts['udf']}, want)[1]:.3e} (wgmma)", flush=True)
+    return rows
+
+
+VALUE_WGMMA_LAUNCHES = {  # kernel name in the profile: launch
+    "pack_kernel": "pack", "value_wgmma_kernel": "value"}
+
+
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def value_wgmma_rows(args, ucfg, whole: dict) -> list:
+    """#3 at the bf16 tier on csrc/mlp_value_wgmma.cu, launch by launch, on
+    the inputs of `whole` (their row as one function): each launch's device
+    time (torch.profiler), its bound from value_wgmma_launch_costs and its
+    output against the plain version of that launch on the same inputs:
+    the prologue against pack_weights_bf16 bit for bit, the value kernel's
+    udf against value_plain (BF16_KERNEL_RTOL). A log line, not the rows,
+    gives beside the value launch the design's floors, reckoned from counts
+    and rates (its products at the bf16 peak; its softplus's
+    special-function operations at SFU_PER_SM_CLOCK an SM at the card's
+    largest SM clock), and the weight chunks it streams from L2 by the plan
+    over the launch's time. Then csrc/mlp_value.cu's mma.sync design and
+    the wgmma kernels timed in turns (old, new, new, old)."""
+    import torch
+
+    from emap_tpu_torch.kernels import mlp_query
+
+    x, w = args[:2]
+    n = x.shape[1]
+    parts = mlp_query.value_wgmma_parts(*args, ucfg)
+    torch.cuda.synchronize()
+    costs = mlp_query.value_wgmma_launch_costs(ucfg, n)
+    times = launch_times(lambda: mlp_query.value_wgmma_parts(*args, ucfg), 3,
+                         tuple(VALUE_WGMMA_LAUNCHES))
+    plain_ms = {
+        "pack": time_ms(lambda: mlp_query.pack_weights_bf16(w, ucfg), 2)[0],
+        "value": time_ms(lambda: mlp_query.value_plain(*args, ucfg), 2)[0],
+    }
+    wb = mlp_query.pack_weights_bf16(w, ucfg)
+    check(torch.equal(parts["wb"], wb), f"{whole['name']}: the pack "
+          f"differs from pack_weights_bf16")
+    want = {"udf": mlp_query.value_plain(*args, ucfg)}
+    held = {
+        "pack": ({"wb": parts["wb"].float()}, {"wb": wb.float()}, 0.0),
+        "value": ({"udf": parts["udf"]}, want, BF16_KERNEL_RTOL),
+    }
+    rows = launch_rows(whole, VALUE_WGMMA_LAUNCHES, times, plain_ms, held,
+                       costs)
+    cost, ms = costs["value"], times["value_wgmma_kernel"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    floors = {
+        "products": 1e3 * cost["flops"] / BF16_PEAK,
+        "special_function_unit": 1e3 * cost["sfu_ops"] / (
+            mlp_query.SFU_PER_SM_CLOCK * sms * clock)}
+    stream = cost["stream_bytes"] / (ms * 1e6)
+    print(f"kernel {whole['name']}: value kernel at "
+          f"{cost['flops'] / (ms * 1e9):.1f} TFLOP/s "
+          f"({cost['flops'] / 1e12:.3f} TFLOP; the bf16 bound "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s); the design's floors: products "
+          f"{floors['products']:.3f} ms, softplus "
+          f"{floors['special_function_unit']:.3f} ms "
+          f"({cost['sfu_ops'] / 1e9:.2f} G special-function operations at "
+          f"{mlp_query.SFU_PER_SM_CLOCK} a clock on each of {sms} SMs at "
+          f"{clock / 1e6:.0f} MHz); the plan's weight chunks from L2 "
+          f"({cost['stream_bytes'] / 1e9:.2f} GB) over the launch's time: "
+          f"{stream:.0f} GB/s",
+          flush=True)
+    in_turns(whole, "mma.sync bf16 (csrc/mlp_value.cu)",
+             lambda: mlp_query.value_mma_sync(*args, ucfg),
+             lambda: mlp_query.value_wgmma_parts(*args, ucfg))
     old = {"udf": mlp_query.value_mma_sync(*args, ucfg)}
     print(f"kernel {whole['name']}: max rel err against the plain version "
           f"{errors(old, want)[1]:.3e} (mma.sync), "
@@ -2077,7 +2188,7 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
     import numpy as np
     import torch
 
-    from emap_tpu_torch import cli
+    from emap_tpu_torch import cli, config
     from emap_tpu_torch.data.synthetic import cube_edges
     from emap_tpu_torch.utils.ply import read_ply_points
 
@@ -2136,6 +2247,13 @@ def route_phase(conf_path: str, tmp: str, row_of: dict, smi: str,
     print(f"route extract_default: largest line-direction call {linedir_n} "
           f"points", flush=True)
     row_of["mlp_value/bf16"]["launches"] = launches["mlp_value/bf16"]
+    # the bf16 grid kernel's masks on this field at the ABC block's menu
+    ee = config.parse_file(conf_path).get_config("edge_extraction")
+    mask_disagreement(
+        {k: {m: t.detach() for m, t in layer.items()}
+         for k, layer in runner.state.params["udf"].items()}, ucfg,
+        ee.get_int("resolution"),
+        [float(t) for t in ee.get_list("auto_threshold")])
     results = os.path.join(runner.base_exp_dir, "results")
     edge_pts, _ = read_ply_points(os.path.join(results, "edge_points.ply"))
     check(len(edge_pts) > 0 and bool(np.isfinite(edge_pts).all()),
@@ -2869,6 +2987,7 @@ def main() -> int:
     abc = config.parse_file(os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "confs", "ABC.conf"))
     ucfg = UDFConfig.from_conf(abc.get_config("model.udf_network"))
+    plan_registers(ucfg)
     rcfg = RenderConfig.from_conf(abc.get_config("model.udf_renderer"))
     n = abc.get_int("train.batch_size") * rcfg.total_samples
     rows = kernel_phase(ucfg, n, (GRID_N, GRID_CHUNK_N))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +21,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
 SOURCES = ("mlp_query", "mlp_query_tf32", "mlp_query_wgmma", "mlp_train",
-           "mlp_train_tf32", "mlp_train_wgmma", "mlp_value", "mlp_value_tf32")
+           "mlp_train_tf32", "mlp_train_wgmma", "mlp_value", "mlp_value_tf32",
+           "mlp_value_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,3 +96,30 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def parse_ptxas(log: str) -> dict:
+    """Each entry function's registers and spilled bytes (stores + loads)
+    from ptxas' report (-Xptxas -v) in nvcc's output: {mangled name:
+    {"registers": n, "spill_bytes": m}}."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = props = m.group(1)
+            out[entry] = {"registers": 0, "spill_bytes": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == entry:
+            out[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out

@@ -40,9 +40,12 @@ value alone for the extraction grid.
   `value.tier_launches`: at the 3xTF32 tier csrc/mlp_value_tf32.cu (wgmma
   .tf32 and TMA: the forward-only pre-split pack and a persistent kernel of
   two consumer warpgroups on one fp32 tile; `value_tf32_plan`,
-  `value_tf32_launch_costs`), at the bf16 tier csrc/mlp_value.cu
-  (mma.sync). `value_mma_sync` runs mlp_value.cu at either tier for timing
-  beside the wgmma kernel and `value_tf32_parts` returns what each of its
+  `value_tf32_launch_costs`), at the bf16 tier csrc/mlp_value_wgmma.cu
+  (wgmma and TMA: the engine's bf16 pack and a persistent kernel of two
+  consumer warpgroups, a 64-point tile each; `value_wgmma_plan`,
+  `value_wgmma_launch_costs`). `value_mma_sync` runs csrc/mlp_value.cu
+  (mma.sync) at either tier for timing beside the wgmma kernels, and
+  `value_tf32_parts` / `value_wgmma_parts` return what each of their
   launches wrote; no path calls them.
 * `query_value`, `query_value_and_grad`: (M, 3) points in, padded to the
   tile, the counterparts of `pallas_udf_value` and
@@ -831,6 +834,91 @@ def value_tf32_launch_costs(cfg: UDFConfig, n: int) -> dict:
     }
 
 
+# The bf16 value kernel (csrc/mlp_value_wgmma.cu): the chain engine's ring
+# and activation tiles (engine_smem) in a persistent grid of one block an
+# SM, each block's two consumer warpgroups taking one 64-point tile each of
+# a pair, so each 64 x 128 weight chunk serves WGMMA_BLOCK_POINTS points;
+# the biases of up to VALUE_WGMMA_LAYERS hidden layers and the head's row
+# wait in shared memory.
+VALUE_WGMMA_LAYERS = 15  # csrc/mlp_common.cuh: MAXL - 1
+# a consumer thread's fp32 registers: a 128-wide half's running sum and its
+# 64-deep chunk's, within the 168 a thread that ptxas compiles a 384-thread
+# block to (setmaxnreg gives the consumers 232 and the producer warpgroup
+# 40 at run time)
+VALUE_WGMMA_REGISTERS = {"accumulators": 64, "chunk_accumulators": 64,
+                         "compiled": 168, "consumer": 232, "producer": 40}
+# the special function unit's operations a softplus (ex2, lg2), and its
+# results a clock an SM on the H100 (NVIDIA's table of the throughput of
+# native arithmetic instructions, compute capability 9.0)
+VALUE_WGMMA_SFU_OPS = 2
+SFU_PER_SM_CLOCK = 16
+
+
+def value_wgmma_plan(cfg: UDFConfig, n: int, sms: int = H100_SMS) -> dict:
+    """Shared memory, registers, launch shape and the weight stream of one
+    launch of the bf16 value kernels at n points on a card of `sms` SMs, as
+    csrc/mlp_value_wgmma.cu reckons them (emap_mlp_value_wgmma_sizes): the
+    bf16 pack (wb elements), the 64-point tiles and their pairs (one a
+    block at a time), and the 64 x 128 weight chunks, and their bytes, a
+    pair streams from L2. Raises ValueError for a net the kernels do not
+    take (check_engine_cfg's refusals, a skip at the head) or a plan past
+    the block's shared memory, on every device."""
+    lay = check_engine_cfg(cfg)
+    if cfg.n_layers in cfg.skip_in:
+        raise ValueError("the bf16 value kernel takes no skip at the head")
+    dims = lay["dims"]
+    parts = dict(engine_smem(), **{
+        f"biases ({VALUE_WGMMA_LAYERS} hidden layers x {WGMMA_FMAX} fp32)":
+            VALUE_WGMMA_LAYERS * WGMMA_FMAX * 4,
+        f"head row ({WGMMA_FMAX} fp32)": WGMMA_FMAX * 4,
+    })
+    smem = sum(parts.values())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the bf16 value kernel needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    # a pair's chunks: each hidden layer's 128-wide halves x its 64-deep
+    # chunks
+    chunks = sum(-(-o // 128) * k // 64
+                 for (_, o), k in zip(dims[:-1], lay["kpad"]))
+    tiles = -(-n // POINT_TILE)
+    pairs = -(-tiles // 2)
+    return {
+        "smem": smem, "smem_parts": parts,
+        "registers": dict(VALUE_WGMMA_REGISTERS),
+        "blocks": min(sms, pairs), "tiles": tiles, "pairs": pairs,
+        "stages": 4, "wb": WGMMA_FMAX * lay["ldwb"],
+        "chunks_per_pair": chunks,
+        "stream_bytes_per_pair": chunks * 2 * 64 * 64 * 2,
+    }
+
+
+def value_wgmma_launch_costs(cfg: UDFConfig, n: int) -> dict:
+    """Each launch of the bf16 value kernels at n points: the FLOP of its
+    products (2 * in * out each, unpadded shapes) and the bytes it must move
+    (each input read once, each output written once), and beside them the
+    weight chunks its pairs of tiles stream from L2 (stream_bytes_per_pair
+    x pairs) and the special function unit's operations of its softplus
+    (VALUE_WGMMA_SFU_OPS for each hidden output of each point)."""
+    lay = wgmma_layout(cfg)
+    dims = lay["dims"]
+    rmax, ldw = max(o for _, o in dims), sum(i for i, _ in dims)
+    f32, bf16 = 4, 2
+    w_bytes, wb_bytes = f32 * rmax * ldw, bf16 * WGMMA_FMAX * lay["ldwb"]
+    plan = value_wgmma_plan(cfg, n)
+    return {
+        "pack": {"flops": 0, "bytes": w_bytes + wb_bytes},
+        # points (8, n) in, udf (n,) out; the bf16 pack, the head's fp32 row
+        # and the biases
+        "value": {"flops": value_flops(cfg) * n,
+                  "bytes": f32 * 9 * n + wb_bytes + f32 * dims[-1][0]
+                  + f32 * rmax * len(dims),
+                  "stream_bytes": plan["pairs"]
+                  * plan["stream_bytes_per_pair"],
+                  "sfu_ops": VALUE_WGMMA_SFU_OPS * n
+                  * sum(o for _, o in dims[:-1])},
+    }
+
+
 def _query_lib():
     from emap_tpu_torch.kernels import build
 
@@ -1085,6 +1173,33 @@ def _value_tf32_lib():
     return lib
 
 
+def _value_wgmma_lib():
+    from emap_tpu_torch.kernels import build
+
+    lib = build.load("mlp_value_wgmma")
+    if not getattr(lib, "_emap_typed", False):
+        vp = ctypes.c_void_p
+        lib.emap_mlp_value_wgmma_sizes.argtypes = [vp, ctypes.c_longlong, vp]
+        lib.emap_mlp_value_wgmma_sizes.restype = ctypes.c_int
+        lib.emap_mlp_value_wgmma.argtypes = [
+            vp, vp, vp, vp, vp, ctypes.c_longlong, vp, ctypes.c_float,
+            ctypes.c_int, vp]
+        lib.emap_mlp_value_wgmma.restype = ctypes.c_int
+        lib._emap_typed = True
+    return lib
+
+
+def value_wgmma_sizes(cfg: UDFConfig, n: int) -> dict:
+    """The bf16 value library's own reckoning of a launch at n points on the
+    current card (card only; the CPU reckons value_wgmma_plan): wb, smem,
+    blocks, tiles."""
+    out = (ctypes.c_longlong * 4)()
+    if _value_wgmma_lib().emap_mlp_value_wgmma_sizes(
+            kernel_layout(cfg).ctypes.data, n, out):
+        raise ValueError("layout refused by the bf16 value kernel")
+    return dict(zip(("wb", "smem", "blocks", "tiles"), list(out)))
+
+
 def value_tf32_sizes(cfg: UDFConfig, n: int) -> dict:
     """The 3xTF32 value library's own reckoning of a launch at n points on
     the current card (card only; the CPU reckons value_tf32_plan): pack,
@@ -1114,6 +1229,23 @@ def _launch_value_tf32(x_T, w_pack, b_pack, cfg, n):
     return udf, {"pack": pack.view(2 * WGMMA_FMAX, -1)}
 
 
+def _launch_value_wgmma(x_T, w_pack, b_pack, cfg, n):
+    """(udf, scratch): the bf16 value launches and the pack they wrote."""
+    lib = _value_wgmma_lib()
+    plan = value_wgmma_plan(cfg, n)
+    dev = x_T.device
+    udf = torch.empty(n, device=dev, dtype=torch.float32)
+    wb = torch.empty(plan["wb"], device=dev, dtype=torch.bfloat16)
+    err = lib.emap_mlp_value_wgmma(
+        x_T.data_ptr(), w_pack.data_ptr(), b_pack.data_ptr(), udf.data_ptr(),
+        wb.data_ptr(), n, kernel_layout(cfg).ctypes.data, float(cfg.scale), 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"mlp_value_wgmma kernel launch failed: CUDA "
+                           f"error {err}")
+    return udf, {"wb": wb.view(WGMMA_FMAX, -1)}
+
+
 def _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
     lib = _value_lib()
     layout = kernel_layout(cfg)
@@ -1133,15 +1265,13 @@ def _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n, tier):
 def value(x_T, w_pack, b_pack, cfg: UDFConfig):
     """udf (N,) at raw points x_T (8, N), at cfg.precision. CPU tensors take
     value_plain; CUDA tensors launch the kernels: mlp_value_tf32.cu's at
-    the 3xTF32 tier, mlp_value.cu's at the bf16 tier."""
+    the 3xTF32 tier, mlp_value_wgmma.cu's at the bf16 tier."""
     if not x_T.is_cuda:
         return value_plain(x_T, w_pack, b_pack, cfg)
     n = check_operands(cfg, (x_T, w_pack, b_pack))
     tier = kernel_tier(cfg.precision)
-    if tier == 0:
-        udf = _launch_value_tf32(x_T, w_pack, b_pack, cfg, n)[0]
-    else:
-        udf = _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n, tier)
+    launch = _launch_value_wgmma if tier == 1 else _launch_value_tf32
+    udf = launch(x_T, w_pack, b_pack, cfg, n)[0]
     value.launches += 1
     value.tier_launches[TIER_NAMES[tier]] += 1
     return udf
@@ -1163,10 +1293,22 @@ def value_tf32_parts(x_T, w_pack, b_pack, cfg: UDFConfig):
     return dict(scratch, udf=udf)
 
 
+def value_wgmma_parts(x_T, w_pack, b_pack, cfg: UDFConfig):
+    """One launch of the bf16 value kernels on CUDA tensors at cfg
+    ("default") with what each launch wrote: udf and wb (the prologue's
+    bf16 pack), to hold each launch against its plain version. Counted in
+    no launch count; no path calls it."""
+    n = check_operands(cfg, (x_T, w_pack, b_pack))
+    if kernel_tier(cfg.precision) != 1:
+        raise ValueError("the bf16 value kernels run the bf16 tier only")
+    udf, scratch = _launch_value_wgmma(x_T, w_pack, b_pack, cfg, n)
+    return dict(scratch, udf=udf)
+
+
 def value_mma_sync(x_T, w_pack, b_pack, cfg: UDFConfig):
-    """csrc/mlp_value.cu at cfg's tier, on CUDA tensors: at 3xTF32 the
-    mma.sync design timed beside mlp_value_tf32.cu. Counted in no launch
-    count; no path calls it."""
+    """csrc/mlp_value.cu at cfg's tier, on CUDA tensors: the mma.sync design
+    timed beside mlp_value_tf32.cu (3xTF32) and mlp_value_wgmma.cu (bf16).
+    Counted in no launch count; no path calls it."""
     n = check_operands(cfg, (x_T, w_pack, b_pack))
     return _launch_value_mma_sync(x_T, w_pack, b_pack, cfg, n,
                                   kernel_tier(cfg.precision))
@@ -1228,5 +1370,6 @@ __all__ = [
     "pack_weights_tf32", "unpack_weights_tf32", "tf32x3_matmul",
     "query_tf32_plan", "query_tf32_launch_costs", "plain_residuals",
     "side_residuals", "value_tf32_plan", "value_tf32_launch_costs",
-    "value_tf32_parts", "value_mma_sync",
+    "value_tf32_parts", "value_mma_sync", "value_wgmma_plan",
+    "value_wgmma_launch_costs", "value_wgmma_parts",
 ]

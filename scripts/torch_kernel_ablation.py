@@ -36,7 +36,10 @@ that tier with fp32 residuals (#1a's field_high route) and with bf16 ones
 max and mean error against the plain version (the gradient against the
 plain version given the kernel's own residuals with bf16 ones:
 kernels/mlp_query.py::side_residuals). The value_tf32_* ablations patch
-#3's 3xTF32 kernel (mlp_value_tf32.cu), timed at a 128^3 grid pass.
+#3's 3xTF32 kernel (mlp_value_tf32.cu), timed at a 128^3 grid pass; the
+value_wgmma_* ones #3's bf16 kernel (mlp_value_wgmma.cu), timed at that
+tier at a 128^3 grid pass, its two launches from torch.profiler and the
+max and mean error against the plain version at that tier.
 The train_tf32_* ablations patch #2's kernels at the pairs with a
 3xTF32 tier (mlp_train_tf32.cu), timed at the 3xTF32 and mixed pairs.
 Ablations that drop work give wrong
@@ -828,8 +831,76 @@ ABLATIONS.update({
     st_if(base + (o + (unsigned)ld), v[1], keep1);
     st_if(base + (o + (unsigned)ld + 8u), v[3], keep1);""")]},
 })
+# #3's bf16 kernel (mlp_value_wgmma.cu), timed at that tier at a 128^3 grid
+# pass: as built alone (the reference of the others), the consumers taking
+# turns at the tensor cores (ping-pong: each 128-wide half's products
+# behind a named barrier that the other consumer opens when its own are
+# done, so one's epilogue runs beside the other's products), a 5-stage ring
+# in place of 4 (the engine's STAGES, timed on this library alone), the
+# special function unit's softplus replaced by the exact fp32 form, one
+# wgmma chain a contraction (no fresh accumulator a 64-deep chunk), and,
+# each with wrong results by design (what that work costs): the softplus
+# replaced by a scale, the PE's sin and cos by their fast forms, and one
+# 64 x 64 box of a stage's two loaded (half the weight stream from L2; the
+# other box's rows read stale).
+VALUE_WGMMA_SOFTPLUS = "  return (fmaxf(u, 0.f) + lg) * c;"
+VALUE_WGMMA_TILE_LOOP = (
+    "  for (long long tt = blockIdx.x; tt < a.pairs; tt += gridDim.x) {\n")
+VALUE_WGMMA_END = ("        a.udf[p0 + p + 8 * k] = u / lay.scale;\n"
+                   "      }\n    }\n  }\n")
+ABLATIONS.update({
+    "value_wgmma_as_built": {},
+    "value_wgmma_pingpong": {"mlp_value_wgmma.cu": [
+        ("  auto wg_sync = [&] { named_sync(1 + wg, WG); };\n",
+         "  auto wg_sync = [&] { named_sync(1 + wg, WG); };\n"
+         "  auto take_turn = [&] { named_sync(3 + wg, 2 * WG); };\n"
+         "  auto pass_turn = [&] {\n"
+         "    asm volatile(\"bar.arrive %0, %1;\\n\" ::\"r\"(4 - wg), "
+         "\"r\"(2 * WG) : \"memory\");\n"
+         "  };\n"),
+        (VALUE_WGMMA_TILE_LOOP,
+         "  if (wg == 1) pass_turn();\n" + VALUE_WGMMA_TILE_LOOP),
+        ("        half_product(acc, part, smem_u32(cur), ring_addr, K, stage, "
+         "phase,\n                     full, empty);\n",
+         "        take_turn();\n"
+         "        half_product(acc, part, smem_u32(cur), ring_addr, K, stage, "
+         "phase,\n                     full, empty);\n"
+         "        pass_turn();\n"),
+        (VALUE_WGMMA_END + "}",
+         VALUE_WGMMA_END + "  if (wg == 0) take_turn();\n}")]},
+    "value_wgmma_stages5": {"mlp_wgmma.cuh": [
+        ("constexpr int STAGES = 4;", "constexpr int STAGES = 5;")]},
+    "value_wgmma_exact_math": {"mlp_value_wgmma.cu": [(
+        VALUE_WGMMA_SOFTPLUS,
+        "  const float t = u * 0.69314718f;  // 100 z\n"
+        "  return (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)))) * (c * "
+        "1.44269504f);")]},
+    "value_wgmma_no_promotion": {"mlp_value_wgmma.cu": [
+        ("                                           uint64_t* empty) {\n"
+         "  mbar_wait(&full[stage], phase);",
+         "                                           uint64_t* empty,\n"
+         "                                           bool keep = false) {\n"
+         "  mbar_wait(&full[stage], phase);"),
+        ("desc_kmajor(b, s), s);", "desc_kmajor(b, s), s || keep);"),
+        ("    chunk_into(part, a_addr + c * BOX_BYTES, ring, stage, phase, "
+         "full, empty);\n#pragma unroll\n"
+         "    for (int i = 0; i < 64; ++i) acc[i] += part[i];",
+         "    chunk_into(acc, a_addr + c * BOX_BYTES, ring, stage, phase, "
+         "full, empty,\n               true);")]},
+    "value_wgmma_no_epilogue_math": {"mlp_value_wgmma.cu": [
+        (VALUE_WGMMA_SOFTPLUS, "  return u * c;")]},
+    "value_wgmma_fast_pe": {"mlp_value_wgmma.cu": [
+        ("          sincosf(a.pts", "          __sincosf(a.pts")]},
+    "value_wgmma_half_stream": {"mlp_value_wgmma.cu": [
+        ("          mbar_expect_tx(&full[stage], STAGE_BYTES);",
+         "          mbar_expect_tx(&full[stage], BOX_BYTES);"),
+        ("          for (int j = 0; j < 2; ++j)\n            tma_load(",
+         "          for (int j = 0; j < 1; ++j)\n            tma_load(")]},
+})
 TIMED = {"p128": ("mlp_value",), "query_tf32_no_split": ("mlp_query_tf32",),
-         "query_tf32_half_stream": ("mlp_query_tf32",)}
+         "query_tf32_half_stream": ("mlp_query_tf32",),
+         "value_wgmma_as_built": ("mlp_value_wgmma",),
+         "value_wgmma_stages5": ("mlp_value_wgmma",)}
 
 
 def patched_tree(root: str, name: str) -> str:
@@ -924,6 +995,7 @@ def main(argv) -> int:
     bwd_mx = tq.unpack_weights(*tt.train_bwd_plain(x, w, b, ub, gb, mixed),
                                cfg)
     ug_p = tq.value_plain(xg, w, b, cfg)
+    ug_bf = tq.value_plain(xg, w, b, bf16)
     q_bf = tq.value_and_grad_plain(x, w, b, bf16)
     names, other = parse_args(argv)
 
@@ -1147,6 +1219,20 @@ def main(argv) -> int:
                           f"err udf {rel(ug, ug_p):.2e}, mean {mean:.2e}, two "
                           f"launches bit-identical: {again}"
                           f"{same(name, '3 tf32', (ug,))}", flush=True)
+                if "mlp_value_wgmma" in libs:
+                    ug = tq.value(xg, w, b, bf16)
+                    again = torch.equal(ug, tq.value(xg, w, b, bf16))
+                    val_ms = ms(lambda: tq.value(xg, w, b, bf16))
+                    lp = launch_ms(lambda: tq.value(xg, w, b, bf16))
+                    mean = float((ug - ug_bf).abs().mean()
+                                 / (ug_bf.abs().max() + 1e-30))
+                    print(f"round {rnd} {name:20s} #3 bf16 wgmma "
+                          f"{val_ms:8.3f} ms (pack "
+                          f"{lp.get('pack_kernel', 0.0):.3f}, value "
+                          f"{lp.get('value_wgmma_kernel', 0.0):.3f})  max "
+                          f"rel err udf {rel(ug, ug_bf):.2e}, mean "
+                          f"{mean:.2e}, two launches bit-identical: {again}"
+                          f"{same(name, '3 bf16', (ug,))}", flush=True)
     return 0
 
 

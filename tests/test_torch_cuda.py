@@ -347,7 +347,7 @@ def test_cuda_bf16_tier_at_step_n_and_extraction_slices(cuda):
 @pytest.mark.parametrize("lib", ["mlp_query", "mlp_train", "mlp_value",
                                  "mlp_train_wgmma", "mlp_query_wgmma",
                                  "mlp_query_tf32", "mlp_value_tf32",
-                                 "mlp_train_tf32"])
+                                 "mlp_train_tf32", "mlp_value_wgmma"])
 def test_cuda_kernels_run_on_tensor_cores(cuda, lib):
     """Each kernel library's SASS holds tensor-core instructions: HMMA
     (mma.sync), or HGMMA (wgmma) in the wgmma libraries."""
@@ -787,23 +787,108 @@ def test_cuda_value_tf32_runs_hgmma_tf32_only(cuda):
     assert "HMMA" not in sass
 
 
+# The bf16 grid value kernels (csrc/mlp_value_wgmma.cu) against value_plain
+# at "default": the same bf16 operands, fp32 sums in another order and the
+# special function unit's softplus (within 3e-9 of the exact value) flip a
+# few bf16 roundings: BF16_RTOL of the largest udf, and by mean error at
+# least BF16_SEPARATION times nearer the bf16 plain version than the fp32
+# one.
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("multires", [10, 6])
-def test_cuda_value_bf16_tier_stays_on_mma_sync(cuda, multires):
-    """value at the bf16 tier ("default") still runs csrc/mlp_value.cu's
-    mma.sync kernel: bit for bit value_mma_sync at that tier, counted a
-    call under "bf16" and none under "3xtf32"."""
-    cfg = tudf.UDFConfig(multires=multires, precision="default")
-    x, _, _ = points(65_536, cuda)
+@pytest.mark.parametrize("n", [65_536, 4160])
+@pytest.mark.parametrize("name", ["abc", "replica", "toy-square"])
+def test_cuda_value_wgmma_matches_plain(cuda, name, n):
+    """value at "default" launches the bf16 value kernels: against
+    value_plain within BF16_RTOL at ABC width (d0p 64), Replica's (d0p 40)
+    and a toy square-head net, at 65,536 points and at 4,160 (65 tiles of
+    64: the last block's second consumer has none), and by mean error at
+    least BF16_SEPARATION times nearer it than the fp32 plain version; two
+    launches bit-identical; one launch counted a call under "bf16";
+    value_wgmma_parts' udf the same bits, its prologue's pack
+    pack_weights_bf16 bit for bit; the library reckons the launch as
+    value_wgmma_plan on this card; value_wgmma_parts and the mma.sync twin
+    (csrc/mlp_value.cu, timed beside it), which still matches the plain
+    version, count no launch."""
+    cfg = dataclasses.replace(CFGS[name], precision="default")
+    x, _, _ = points(n, cuda)
     w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
                                                              cfg))
     before = dict(tq.value.tier_launches)
-    u = tq.value(x, w, b, cfg)
+    runs = [tq.value(x, w, b, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tq.value.tier_launches == dict(before, bf16=before["bf16"] + 2)
+    assert torch.equal(runs[0], runs[1]) and runs[0].shape == (n,)
+    assert bool(torch.isfinite(runs[0]).all())
+    want = tq.value_plain(x, w, b, cfg)
+    want32 = tq.value_plain(x, w, b, dataclasses.replace(cfg,
+                                                         precision="high"))
+    assert max_rel(runs[0], want) < BF16_RTOL
+    assert BF16_SEPARATION * mean_rel(runs[0], want) < mean_rel(runs[0],
+                                                                 want32)
+    parts = tq.value_wgmma_parts(x, w, b, cfg)
     twin = tq.value_mma_sync(x, w, b, cfg)
     torch.cuda.synchronize()
-    assert tq.value.tier_launches == dict(before,
-                                          bf16=before["bf16"] + 1)
-    assert torch.equal(u, twin)
+    assert tq.value.tier_launches["bf16"] == before["bf16"] + 2
+    assert torch.equal(parts["udf"], runs[0])
+    assert torch.equal(parts["wb"], tq.pack_weights_bf16(w, cfg))
+    plan = tq.value_wgmma_plan(cfg, n, sms=torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert tq.value_wgmma_sizes(cfg, n) == {
+        "wb": plan["wb"], "smem": plan["smem"], "blocks": plan["blocks"],
+        "tiles": plan["tiles"]}
+    assert max_rel(twin, want) < BF16_RTOL
+
+
+@pytest.mark.cuda
+def test_cuda_value_wgmma_runs_hgmma_only(cuda):
+    """The bf16 value library's SASS holds wgmma (HGMMA) and no mma.sync
+    (HMMA)."""
+    import shutil
+    import subprocess
+
+    from emap_tpu_torch.kernels import build
+
+    build.load("mlp_value_wgmma")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.lib_path("mlp_value_wgmma")],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
+    assert "HMMA" not in sass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib, kernel, plan", [
+    ("mlp_value_tf32", "value_tf32_kernel", "value_tf32_plan"),
+    ("mlp_value_wgmma", "value_wgmma_kernel", "value_wgmma_plan")])
+def test_cuda_value_kernels_compile_to_their_planned_registers(cuda, lib,
+                                                               kernel, plan):
+    """ptxas compiles each value kernel to the registers a thread its plan
+    gives (the launch bound of a 384-thread block), with no byte spilled."""
+    from emap_tpu_torch.kernels import build
+
+    build.load(lib)
+    report = build.parse_ptxas(build.build_log(lib))
+    regs = getattr(tq, plan)(tudf.UDFConfig(), 128 ** 3)["registers"]
+    assert [v for k, v in report.items() if kernel in k] == [
+        {"registers": regs["compiled"], "spill_bytes": 0}]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_cuda_value_refuses_a_skip_at_the_head(cuda, precision):
+    """A net whose head takes a skip, which the wgmma value kernels of both
+    tiers refuse (they sum the head's dot from the last hidden layer's
+    outputs alone), raises on the card: no launch, no fall-back."""
+    cfg = tudf.UDFConfig(d_hidden=64, n_layers=8, multires=6,
+                         skip_in=(4, 8), precision=precision)
+    x, _, _ = points(4096, cuda)
+    w, b = (t.detach().contiguous() for t in tq.pack_weights(net(cfg, cuda),
+                                                             cfg))
+    before = dict(tq.value.tier_launches)
+    with pytest.raises(ValueError):
+        tq.value(x, w, b, cfg)
+    assert tq.value.tier_launches == before
 
 
 def _fixture_script():
