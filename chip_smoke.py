@@ -98,7 +98,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
      candidates x sampling_N points, launched over slices of SLICE_CAP);
      and solve the first EIGH_BATCH Gram matrices of its line-direction
      sweep again with LAPACK on the host, counting the smallest
-     eigenvectors whose sign differs from cuSOLVER's (a measurement only);
+     eigenvectors whose sign differs from cuSOLVER's, and holding them to
+     one sign once turned as the extraction turns them (canonical_sign:
+     none apart away from a tie between their two largest components);
   7. score phase 6's parametric_edges.json against the cube's analytic
      edges with the ABC protocol (emap_tpu_torch/eval/synthetic.py):
      F@5/10/20 mm, chamfer, the line and curve counts; F@20mm must reach
@@ -2074,21 +2076,33 @@ def extract_phase(conf_path: str, ucfg, row_of: dict, smi: str) -> dict:
 def eigen_signs(gram) -> None:
     """The smallest eigenvectors of (B, 3, 3) Gram matrices from cuSOLVER
     (on the card) against LAPACK's (torch on the host): how many point the
-    other way. Printed, not held to a bar."""
+    other way as the solvers return them (printed), and, turned by
+    extract/pointcloud.py::canonical_sign as the extraction turns them,
+    none where the two solvers agree on the axis (|dot| >= 0.99) and its
+    two largest components are not within 1e-3 of a tie."""
     import torch
 
-    on_card = torch.linalg.eigh(gram)[1][:, :, 0].cpu()
+    from emap_tpu_torch.extract.pointcloud import canonical_sign
+
+    on_card = torch.linalg.eigh(gram)[1][:, :, 0]
     on_host = torch.linalg.eigh(gram.cpu())[1][:, :, 0]
-    dots = (on_card * on_host).sum(-1)
+    dots = (on_card.cpu() * on_host).sum(-1)
     flipped = int((dots < 0).sum())
     # |dot| well below 1: the two solvers return different directions, not
     # only different signs (a near-degenerate smallest eigenvalue)
-    apart = int((dots.abs() < 0.99).sum())
+    apart = dots.abs() < 0.99
+    top2 = on_host.abs().sort(dim=-1).values[:, 1:]
+    tie = (top2[:, 1] - top2[:, 0]) < 1e-3
+    turned = ((canonical_sign(on_card).cpu() * canonical_sign(on_host))
+              .sum(-1) < 0) & ~apart & ~tie
     print(f"extract: line directions of the first {len(gram):,} Gram "
           f"matrices of the line-direction sweep: cuSOLVER and LAPACK "
           f"smallest eigenvectors differ in sign for {flipped:,} "
-          f"({flipped / len(gram):.4f}); {apart:,} of them are more than "
-          f"sign apart (|dot| < 0.99)", flush=True)
+          f"({flipped / len(gram):.4f}); {int(apart.sum()):,} of them are "
+          f"more than sign apart (|dot| < 0.99); after canonical_sign "
+          f"{int(turned.sum())} differ in sign away from a tie", flush=True)
+    check(int(turned.sum()) == 0, "canonical_sign leaves cuSOLVER's and "
+          "LAPACK's line directions pointing apart")
 
 
 def score_phase(conf_path: str, smi: str) -> None:

@@ -432,10 +432,13 @@ def edge_fit(
     max_curves: int = 3,
     keep_short_lines: bool = True,
     seed: int = 42,
+    counts: dict | None = None,
 ):
     """Full fitting pass: voxel downsample -> polyline growth -> line/curve
     fits (reference edge_fitting/main.py:304-373). Returns the fitted edge
-    dict in the reference's schema."""
+    dict in the reference's schema. `counts`, where given, receives the
+    points after the downsample ("downsampled") and the polylines grown
+    ("polylines")."""
     rng = np.random.default_rng(seed)
     res = float(resolution)
     pts_ds, colors_ds = voxel_downsample_with_colors(
@@ -469,6 +472,8 @@ def edge_fit(
             rng,
         )
     polylines = [pts_wld[idx] for idx in polyline_idx]
+    if counts is not None:
+        counts.update(downsampled=len(pts_wld), polylines=len(polylines))
 
     segments, raw_on_lines, curve_params, raw_on_curves = fit_polylines(
         polylines,

@@ -162,11 +162,16 @@ def get_parametric_edge(
     (reference get_parametric_edge :216-300).
 
     Returns (pred_points (M,3) f32, edge_dict with 'curves_ctl_pts' and
-    'lines_end_pts'). With visible_checking, a `trace` list gets one
-    {"stage": "visibility", "seconds", "frames", "kept", "dropped"} entry:
-    the filter's host time (edge maps read included) and its primitive
-    counts.
+    'lines_end_pts'). A `trace` list gets one {"stage": "edge_fit",
+    "seconds", "points", "downsampled", "polylines", "lines", "curves"}
+    entry (the cloud, the points after the voxel downsample, the polylines
+    grown and the primitives fitted) and one {"stage": "merge", "seconds",
+    "lines", "curves"}; with visible_checking, also one {"stage":
+    "visibility", "seconds", "frames", "kept", "dropped"}: the filter's host
+    time (edge maps read included) and its primitive counts.
     """
+    t0 = time.perf_counter()
+    counts: dict = {}
     fitted = edge_fit(
         points,
         ld_colors,
@@ -178,7 +183,9 @@ def get_parametric_edge(
         max_lines=MAX_LINES,
         max_curves=MAX_CURVES,
         seed=seed,
+        counts=counts,
     )
+    t1 = time.perf_counter()
     merged = merge(
         fitted,
         merge_edge_distance_threshold=MERGE_EDGE_DISTANCE_THRESHOLD,
@@ -188,6 +195,13 @@ def get_parametric_edge(
 
     curves = np.asarray(merged["curves_ctl_pts"], np.float64).reshape(-1, 12)
     lines = np.asarray(merged["lines_end_pts"], np.float64).reshape(-1, 6)
+    if trace is not None:
+        trace.append({"stage": "edge_fit", "seconds": t1 - t0,
+                      "points": int(len(points)), **counts,
+                      "lines": len(fitted["lines_end_pts"]),
+                      "curves": len(fitted["curves_ctl_pts"])})
+        trace.append({"stage": "merge", "seconds": time.perf_counter() - t1,
+                      "lines": len(lines), "curves": len(curves)})
 
     if visible_checking:
         t0 = time.perf_counter()

@@ -11,7 +11,8 @@ line directions from jittered gradients, and point shifting.
   -g/(|g|+1e-5), and optionally line directions, the smallest-eigenvalue
   eigenvector of the 3x3 Gram matrix of the normalized gradients at
   `sampling_N` jittered samples (torch.linalg.eigh; a closed-form
-  eigensolver cost F@5mm 0.62 -> 0.41 in the JAX package).
+  eigensolver cost F@5mm 0.62 -> 0.41 in the JAX package), turned so that
+  its largest component is positive (canonical_sign).
 * The jitter is drawn per batch from a torch.Generator seeded from
   (seed, sweep, batch), so it does not depend on how a batch is computed.
   Torch and jax draw different numbers: line directions match the JAX
@@ -35,6 +36,12 @@ contiguous sub-range of every grid chunk and its rows of every point batch
 are gathered back in order to every rank. A point's value does not depend
 on the launch it is in, so the masks, candidates and features equal one
 process's bit for bit. Every rank must make the same calls.
+
+`stages`, where given, is a dict that receives each threshold's stage
+arrays in the layout of the JAX package's stage dumps
+(scripts/diag_platform.py): {t: {"cand_idx": flat grid indices under t,
+"df0", "nrm0": the first sweep's clamped udf and normals at them,
+"final_df": the last sweep's udf at the points returned}}.
 
 `extract_fields` and `extract_gradient_fields` sample a dense grid over any
 box through the same two kernels, in one process.
@@ -111,6 +118,22 @@ def grid_masks(params, ucfg: UDFConfig, N: int, thresholds,
     return masks
 
 
+def canonical_sign(v: torch.Tensor) -> torch.Tensor:
+    """The rows of v (B, 3), each turned so that its largest-magnitude
+    component is positive. A line direction is an axis and an eigensolver
+    picks its sign as it goes: LAPACK's and cuSOLVER's point neighbouring
+    points of one edge opposite ways about a fifth of the time, and the
+    fit, which averages the directions' colours over each voxel
+    (fitting.py::voxel_downsample_with_colors), then loses the direction in
+    about a fifth of its voxels and breaks its polylines there, into more
+    lines and curves. The JAX package's reference runs took the TPU's
+    eigensolver, whose smallest eigenvectors follow this rule (98.9% of the
+    line directions of diag_platform/rings_s42_tpu.npz; the rest near a tie
+    between two components)."""
+    largest = torch.gather(v, -1, v.abs().argmax(dim=-1, keepdim=True))
+    return torch.where(largest < 0, -v, v)
+
+
 def _point_batch_features(params, pts, jitter, ucfg: UDFConfig,
                           sampling_n: int, with_linedir: bool):
     """udf, normals (-unit grad) and optional line directions for a (B, 3)
@@ -130,8 +153,8 @@ def _point_batch_features(params, pts, jitter, ucfg: UDFConfig,
     # (n, 3) gradient matrix)
     gram = torch.einsum("bni,bnj->bij", g, g)
     # ascending eigenvalues: column 0 belongs to the smallest
-    line_dir = torch.cat([torch.linalg.eigh(m)[1][:, :, 0]
-                          for m in gram.split(EIGH_BATCH)])
+    line_dir = canonical_sign(torch.cat([torch.linalg.eigh(m)[1][:, :, 0]
+                                         for m in gram.split(EIGH_BATCH)]))
     return udf, normals, line_dir / (
         torch.linalg.norm(line_dir, dim=-1, keepdim=True) + 1e-5)
 
@@ -238,7 +261,7 @@ def extract_pointcloud(params, ucfg: UDFConfig, resolution: int = 128,
                        is_linedirection: bool = False, seed: int = 42,
                        grid_chunk: int = GRID_CHUNK,
                        point_batch: int = POINT_BATCH, trace=None,
-                       group=None):
+                       group=None, stages=None):
     """Edge point cloud from the UDF `params` (on the device the queries run
     on). Returns (points (M, 3), line_directions (M, 3)) numpy float32;
     under a `group`, on every rank."""
@@ -246,7 +269,7 @@ def extract_pointcloud(params, ucfg: UDFConfig, resolution: int = 128,
         return _extract(params, ucfg, resolution, [float(udf_threshold)],
                         sampling_N, sampling_delta, is_pointshift, iters,
                         is_linedirection, seed, grid_chunk,
-                        int(point_batch), trace, group)[
+                        int(point_batch), trace, group, stages)[
             float(udf_threshold)]
 
 
@@ -257,7 +280,7 @@ def extract_pointcloud_multi(params, ucfg: UDFConfig, resolution: int,
                              is_linedirection: bool = False, seed: int = 42,
                              grid_chunk: int = GRID_CHUNK,
                              point_batch: int = POINT_BATCH, trace=None,
-                             group=None):
+                             group=None, stages=None):
     """Extraction at K candidate thresholds for ONE grid + feature cost.
 
     Only the membership tests (grid mask, per-iteration keep) depend on the
@@ -271,12 +294,12 @@ def extract_pointcloud_multi(params, ucfg: UDFConfig, resolution: int,
                         sorted(float(t) for t in thresholds), sampling_N,
                         sampling_delta, is_pointshift, iters,
                         is_linedirection, seed, grid_chunk,
-                        int(point_batch), trace, group)
+                        int(point_batch), trace, group, stages)
 
 
 def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
              is_pointshift, iters, is_linedirection, seed, grid_chunk,
-             point_batch, trace, group):
+             point_batch, trace, group, stages):
     t_max = thresholds[-1]
     near = grid_masks(params, ucfg, N, thresholds, grid_chunk, trace, group)
 
@@ -294,6 +317,11 @@ def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
     want_dirs_now = is_linedirection and not (is_pointshift and iters > 0)
     df, normals, line_dirs = sweep(xyz, 0, want_dirs_now)
     df = np.maximum(df, 0.0)
+    if stages is not None:
+        for k, t in enumerate(thresholds):
+            live = alive[k].copy()
+            stages[t] = {"cand_idx": cand_idx[live], "df0": df[live],
+                         "nrm0": normals[live]}
 
     # shared shift trajectories toward the zero set, per-candidate keeps
     rows = np.arange(len(cand_idx))  # superset row of each live point
@@ -315,9 +343,11 @@ def _extract(params, ucfg, N, thresholds, sampling_N, sampling_delta,
         sel = alive[k, rows]
         out[t] = (xyz[sel].astype(np.float32),
                   line_dirs[sel].astype(np.float32))
+        if stages is not None:
+            stages[t]["final_df"] = df[sel]
     return out
 
 
-__all__ = ["extract_fields", "extract_gradient_fields", "extract_pointcloud",
-           "extract_pointcloud_multi", "grid_masks", "grid_points",
-           "GRID_CHUNK", "POINT_BATCH"]
+__all__ = ["canonical_sign", "extract_fields", "extract_gradient_fields",
+           "extract_pointcloud", "extract_pointcloud_multi", "grid_masks",
+           "grid_points", "GRID_CHUNK", "POINT_BATCH"]

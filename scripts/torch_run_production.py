@@ -18,12 +18,16 @@ Environment: PROD_CONF (ABC; a path ending in .conf names a conf file,
 as for a toy conf on the CPU), PROD_OUT (./e2e_torch_prod_<conf>),
 PROD_ITERS (0: the conf's end_iter), PROD_OBJ (cube), PROD_SEED (0: the
 conf's seed, 42), PROD_EXTRACT_RES (0: the conf's resolution), PROD_DEVICE
-(cuda; cpu runs the kernels' plain versions, for toy runs).
+(cuda; cpu runs the kernels' plain versions, for toy runs), PROD_SET
+("": conf keys set in the copy, "key=value;key=value", e.g.
+"model.udf_renderer.field_precision=default").
 PROD_STOP_AT (0: none) ends the training after that step and exits before
 the extraction; running the script again with the same PROD_OUT resumes
 the run exactly where it stopped (`--stop_at`, `--is_continue`), so a run
 longer than one sitting can be taken in parts. Its train_wall_s sums the
-parts. The training dispatches the conf's chain of steps a call (500 for
+parts. Run again on a finished run (train_parts.json reaches end_iter, no
+stop left), it trains nothing and extracts and scores the run's
+checkpoint anew. The training dispatches the conf's chain of steps a call (500 for
 confs/ABC.conf) as CUDA graph replays; each part's `launches` counts the
 kernels' runs by "<kernel>/<tier>", replays included (`graph_launches`
 holds the capture's and the replays' shares) and `card` the card's name
@@ -59,6 +63,7 @@ SEED = int(os.environ.get("PROD_SEED", "0"))
 EXTRACT_RES = int(os.environ.get("PROD_EXTRACT_RES", "0"))
 STOP_AT = int(os.environ.get("PROD_STOP_AT", "0"))
 DEVICE = os.environ.get("PROD_DEVICE", "cuda")
+SET = os.environ.get("PROD_SET", "")
 
 
 def write_conf():
@@ -84,10 +89,44 @@ def write_conf():
         conf["train.seed"] = SEED
     if EXTRACT_RES:
         conf["edge_extraction.resolution"] = EXTRACT_RES
+    for item in filter(None, SET.split(";")):
+        key, value = item.split("=", 1)
+        conf[key.strip()] = config.parse_string(f"v = {value}")["v"]
     path = os.path.join(OUT, f"{CONF_NAME}_standin.conf")
     with open(path, "w") as f:
         f.write(conf.to_hocon())
     return path, conf
+
+
+def train(conf_path: str, end_iter: int, stop_file: str, parts: list,
+          parts_file: str) -> None:
+    """One part of the training through the CLI (resuming a stopped run),
+    appended to `parts` and written to train_parts.json."""
+    from emap_tpu_torch.ckpt.native import load_pytree
+    from emap_tpu_torch.cli import main as cli_main
+    from emap_tpu_torch.kernels import launch_counts
+
+    argv = ["--conf", conf_path, "--mode", "train", "--device", DEVICE]
+    resumed = os.path.exists(stop_file)
+    if resumed:
+        argv.append("--is_continue")
+    start = int(load_pytree(stop_file)["iter_step"]) if resumed else 0
+    if start < STOP_AT < end_iter:
+        argv += ["--stop_at", str(STOP_AT)]
+    t0, before = time.time(), launch_counts()
+    runner = cli_main(argv, n_devices=1)
+    (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
+        runner.timeline[-1]
+    parts.append({"from": start, "to": int(runner.state.step),
+                  "card": card(), "tiers": runner.tiers,
+                  "wall_s": time.time() - t0,
+                  # from the first fetch to the last, validations included
+                  "ms_per_step": 1e3 * (tb - ta) / max(s1 - s0, 1),
+                  "launches": since(before, runner),
+                  "graph_launches": {"captured": runner.captured_launches,
+                                     "replayed": runner.replayed_launches}})
+    with open(parts_file, "w") as f:
+        json.dump(parts, f, indent=1)
 
 
 def card() -> str:
@@ -148,35 +187,19 @@ def main() -> dict:
     stop_file = os.path.join(ckpt_dir, "ckpt_stop.npz")
     parts_file = os.path.join(OUT, "train_parts.json")
     parts = []
-    if os.path.exists(stop_file) and os.path.exists(parts_file):
+    if os.path.exists(parts_file):
         with open(parts_file) as f:
             parts = json.load(f)
-
-    argv = ["--conf", conf_path, "--mode", "train", "--device", DEVICE]
-    resumed = os.path.exists(stop_file)
-    if resumed:
-        argv.append("--is_continue")
-    start = int(load_pytree(stop_file)["iter_step"]) if resumed else 0
-    if start < STOP_AT < end_iter:
-        argv += ["--stop_at", str(STOP_AT)]
-    t0, before = time.time(), launch_counts()
-    runner = cli_main(argv, n_devices=1)
-    (s0, ta), (s1, tb) = runner.timeline[min(1, len(runner.timeline) - 1)], \
-        runner.timeline[-1]
-    parts.append({"from": start, "to": int(runner.state.step),
-                  "card": card(), "tiers": runner.tiers,
-                  "wall_s": time.time() - t0,
-                  # from the first fetch to the last, validations included
-                  "ms_per_step": 1e3 * (tb - ta) / max(s1 - s0, 1),
-                  "launches": since(before, runner),
-                  "graph_launches": {"captured": runner.captured_launches,
-                                     "replayed": runner.replayed_launches}})
-    with open(parts_file, "w") as f:
-        json.dump(parts, f, indent=1)
-    if runner.state.step < end_iter:
-        print(json.dumps({"stopped_at": runner.state.step,
-                          "end_iter": end_iter, "parts": parts}))
-        return {}
+    trained = (not os.path.exists(stop_file) and bool(parts)
+               and parts[-1]["to"] >= end_iter)
+    if not (trained or os.path.exists(stop_file)):
+        parts = []
+    if not trained:
+        train(conf_path, end_iter, stop_file, parts, parts_file)
+        if parts[-1]["to"] < end_iter:
+            print(json.dumps({"stopped_at": parts[-1]["to"],
+                              "end_iter": end_iter, "parts": parts}))
+            return {}
     train_wall = sum(p["wall_s"] for p in parts)
 
     import torch
