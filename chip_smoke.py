@@ -154,8 +154,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
      launches of #3 and #1b counted and held against plain autograd; and,
      where the machine has two cards or more, phase 4's run through the
      CLI on 2 (and 4) spawned NCCL ranks against one process (losses rtol
-     1e-4, parameters rtol 2e-4 / atol 2e-6, ranks bit-identical), else a
-     line saying it was not run;
+     1e-4, parameters rtol 2e-4 / atol 2e-6, ranks bit-identical), and
+     `--mode extract_edge` on phase 6's checkpoint through the CLI on 2
+     (and 4) spawned NCCL ranks, its result files byte for byte against
+     one process's, else a line saying each was not run;
  13. the JAX package's last public functions: a 400x400, 24-view PidiNet
      cube scene with 3-pixel lines (the port's OpenCV thick anti-aliased
      line) written and timed; REPLICA_ITER steps of confs/Replica.conf on
@@ -2831,6 +2833,48 @@ def multi_rank_check(conf_path: str, tmp: str, smi: str) -> None:
               f"world {world} differs from one process")
 
 
+def multi_rank_extract_check(conf_path: str, tmp: str, smi: str) -> None:
+    """Phase 12 where the machine has two cards or more: `--mode
+    extract_edge` through `cli.main` on phase 6's checkpoint (the ABC
+    block at 128^3) in one process and on 2 (and, with four cards, 4)
+    spawned NCCL ranks, each world in its own copy of the run
+    (scripts/torch_sharded_extract.py); every result file byte for byte
+    against one process's, every rank through the grid and sweep
+    kernels."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_sharded_extract as sharded
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in (2, 4) if w <= cards]
+    if not worlds:
+        print(f"parallel: the spawned multi-rank extraction was not run: it "
+              f"needs 2 cards, this machine has {cards}", flush=True)
+        return
+    out = os.path.join(tmp, "sharded")
+    for world in [1] + worlds:
+        path = sharded.prepare(conf_path, out, world)
+        got = sharded.extract_world(path, world, "cuda")
+        print(f"parallel: extract_edge at world {world} on {smi}:",
+              flush=True)
+        sharded.report(world, got)
+        for r in got["ranks"]:
+            idle = [k for k in ("mlp_value", "mlp_value_and_grad")
+                    if not any(v for key, v in r["launches"].items()
+                               if key.startswith(f"{k}/"))]
+            check(not idle, f"world {world} rank {r['rank']} launched no "
+                  f"{idle}")
+    for world in worlds:
+        diff = sharded.first_difference(out, world)
+        print(f"parallel: extract_edge at world {world} against one "
+              f"process: {diff or 'every result file byte for byte equal'}",
+              flush=True)
+        check(diff is None, f"the extraction at world {world} differs from "
+              f"one process's, first at {diff}")
+
+
 def parallel_phase(runner, conf_path: str, tmp: str, smi: str) -> None:
     """Phase 12: the multi-device path (parallel/mesh.py). A NCCL group of
     world 1 in this process: the ABC-width step with its collectives
@@ -2853,6 +2897,7 @@ def parallel_phase(runner, conf_path: str, tmp: str, smi: str) -> None:
         torch.distributed.destroy_process_group()
     dense_fields_check(runner.ucfg)
     multi_rank_check(conf_path, tmp, smi)
+    multi_rank_extract_check(conf_path, tmp, smi)
 
 
 def gradient_check(ucfg, label: str) -> None:

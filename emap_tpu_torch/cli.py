@@ -71,11 +71,17 @@ def rank_summary(group, conf, args) -> dict:
     """One rank's run of the mode (parallel/mesh.py::launch): what the
     caller of `main` gets back from each rank. `launches`: the kernels'
     runs by "<kernel>/<tier>" (the wrappers' counts, less the launches the
-    CUDA graph's capture counted, plus those its replays ran)."""
+    CUDA graph's capture counted, plus those its replays ran);
+    `extract_trace`: the extraction's stages on this rank;
+    `peak_bytes`: the rank's peak device memory (None on the CPU)."""
     from emap_tpu_torch.kernels import launch_counts
 
     runner = run_mode(conf, args, group.device, group)
+    on_card = group.device.type == "cuda"
     return {"rank": group.rank, "world": group.world,
+            "extract_trace": runner.extract_trace,
+            "peak_bytes": (torch.cuda.max_memory_allocated(group.device)
+                           if on_card else None),
             "step": runner.state.step, "history": runner.history,
             "timeline": runner.timeline,
             "params": {k: {n: t.detach().cpu().numpy()

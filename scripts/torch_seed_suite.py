@@ -26,9 +26,10 @@ same conf, object and seed (JAX_RUNS below: its report, the threshold
 selector's table, and the `runner.py:420` rows of its log). For each pair
 it prints the picked threshold, F@5/10mm, precision and recall at 5 mm,
 lines, curves and primitive points; the selector's table candidate by
-candidate; and the training metrics at STEPS. For each conf it prints the
-port's mean and sd of F@5mm over its seeds beside the JAX band of
-RESULTS.md and the bar (mean less two sd), and Welch's t of the two means.
+candidate; and the training metrics at STEPS. For each conf and object
+(the ABC cube apart from the ABC rings) it prints the port's mean and sd
+of F@5mm over its seeds beside the JAX band of RESULTS.md and the bar
+(mean less two sd), and Welch's t of the two means.
 Seed 42 enters the port's side with the checkpoint's numbers as measured
 after the sign repair (PORT_SEED42) unless a report of it is under the
 root; the JAX run of seed 42 left no report of its own pick, so that seed
@@ -56,9 +57,15 @@ STEPS = (1000, 10000, 50000, 100000, 150000, 200000)
 METRICS = ("loss", "edge", "eik", "psnr", "s_val", "beta", "gamma", "w_sum",
            "udf_min")
 
-# The JAX package's runs of the shipped confs on the 128x128 cube: directory
-# (report.json, threshold_selection.json or the report's own table) and log.
+# The JAX package's runs of the shipped confs on the 128x128 scenes:
+# directory (report.json, threshold_selection.json or the report's own
+# table) and log.
 JAX_RUNS = {
+    **{("ABC", "cube", s): (f"prod_suite_r4/final_s{s}",
+                            f"prod_suite_r4/final_s{s}.log")
+       for s in (42, 7, 99, 3, 1234)},
+    **{("ABC", "rings", s): (f"prod_rings_r5/s{s}", f"prod_rings_r5/s{s}.log")
+       for s in (42, 7, 99, 3, 1234)},
     ("Replica", "cube", 7): ("e2e_replica200k_s7", "e2e_replica200k_s7.log"),
     ("Replica", "cube", 99): ("r5_200k/replica_s99", "r5_200k/replica_s99.log"),
     ("Replica", "cube", 3): ("r5_200k/replica_s3", "r5_200k/replica_s3.log"),
@@ -68,10 +75,17 @@ JAX_RUNS = {
     ("DTU", "cube", 99): ("r5_200k/dtu_s99", "r5_200k/dtu_s99.log"),
     ("DTU", "cube", 3): ("r5_200k/dtu_s3", "r5_200k/dtu_s3.log"),
 }
-# RESULTS.md:19-22: the JAX band's F@5mm by seed (42 is the "orig" run).
+# RESULTS.md:19-22: the JAX band's F@5mm by (conf, obj) and seed (42 is
+# the "orig" run; the ABC cube's band adds five fresh seeds).
 JAX_BAND = {
-    "Replica": {42: 0.7126, 7: 0.7164, 99: 0.6692, 3: 0.7506, 1234: 0.6816},
-    "DTU": {42: 0.9424, 7: 0.9375, 99: 0.9253, 3: 0.9246},
+    ("ABC", "cube"): {42: 0.8149, 7: 0.8715, 99: 0.9548, 3: 0.9222,
+                      1234: 0.8449, 11: 0.8957, 17: 0.9624, 23: 0.7355,
+                      31: 0.8359, 57: 0.8800},
+    ("ABC", "rings"): {42: 0.4122, 7: 0.3958, 99: 0.3131, 3: 0.3733,
+                       1234: 0.4264},
+    ("Replica", "cube"): {42: 0.7126, 7: 0.7164, 99: 0.6692, 3: 0.7506,
+                          1234: 0.6816},
+    ("DTU", "cube"): {42: 0.9424, 7: 0.9375, 99: 0.9253, 3: 0.9246},
 }
 # The port's seed-42 Replica checkpoint, re-extracted with the line
 # directions' sign repaired (PERF.md section 5; H100 80GB HBM3, 700 W).
@@ -242,7 +256,13 @@ def summary(report: dict, selection: dict | None) -> dict:
             "curves": score["n_curves"], "points": points}
 
 
+PICKED = re.compile(r"auto_threshold picked (\S+) from")
+
+
 def load_run(directory: str, log: str | None) -> dict:
+    """A run's summary, selector table and training rows. A run that left
+    no table of its selector (the JAX ABC runs of seeds 99, 3 and 1234)
+    takes its pick from the runner's `picked ... from` line in its log."""
     with open(os.path.join(directory, "report.json")) as f:
         report = json.load(f)
     selection = report.get("threshold_selection")
@@ -250,9 +270,16 @@ def load_run(directory: str, log: str | None) -> dict:
     if not selection and os.path.exists(sel_file):
         with open(sel_file) as f:
             selection = json.load(f)
-    return {"summary": summary(report, selection),
-            "candidates": selection["candidates"] if selection else [],
-            "rows": log_rows(log) if log and os.path.exists(log) else {}}
+    has_log = bool(log) and os.path.exists(log)
+    out = {"summary": summary(report, selection),
+           "candidates": selection["candidates"] if selection else [],
+           "rows": log_rows(log) if has_log else {}}
+    if selection is None and has_log:
+        with open(log, errors="replace") as f:
+            picks = PICKED.findall(f.read())
+        if picks:
+            out["summary"]["picked"] = float(picks[-1])
+    return out
 
 
 def jax_run(conf: str, obj: str, seed: int) -> dict | None:
@@ -304,7 +331,8 @@ def fmt(v) -> str:
 
 
 def compare(root: str) -> dict:
-    """Print the tables; return each conf's seeds, mean, band and t."""
+    """Print the tables; return each (conf, obj)'s seeds, mean, band and
+    t."""
     ports = port_runs(root)
     for (conf, obj), s42 in PORT_SEED42.items():
         ports.setdefault((conf, obj, 42), {"summary": s42, "candidates": [],
@@ -340,21 +368,21 @@ def compare(root: str) -> dict:
                     if row:
                         print(f"{step:>14} {side:>4} " + " ".join(
                             f"{fmt(row.get(m)):>8}" for m in METRICS))
-    for conf, band in JAX_BAND.items():
+    for (conf, obj), band in JAX_BAND.items():
         mine = [ports[k]["summary"]["f5"] for k in sorted(ports)
-                if k[0] == conf and k[1] == "cube"]
+                if k[:2] == (conf, obj)]
         if not mine:
             continue
         jmean, jsd = mean_sd(list(band.values()))
         pmean, psd = mean_sd(mine)
         res = {"port_seeds": [k[2] for k in sorted(ports)
-                              if k[0] == conf and k[1] == "cube"],
+                              if k[:2] == (conf, obj)],
                "port_f5": mine, "port_mean": pmean, "port_sd": psd,
                "jax_mean": jmean, "jax_sd": jsd, "bar": jmean - 2 * jsd,
                "met": pmean >= jmean - 2 * jsd,
                "welch": welch(mine, list(band.values()))}
-        out[conf] = res
-        print(f"\n{conf}: port F@5mm {pmean:.4f} ± {psd:.4f} over seeds "
+        out[(conf, obj)] = res
+        print(f"\n{conf} {obj}: port F@5mm {pmean:.4f} ± {psd:.4f} over seeds "
               f"{res['port_seeds']} ({', '.join(f'{v:.4f}' for v in mine)}); "
               f"JAX {jmean:.4f} ± {jsd:.4f} (n={len(band)}); bar "
               f"{res['bar']:.4f}: {'met' if res['met'] else 'NOT met'}; "

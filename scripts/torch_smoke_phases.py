@@ -21,7 +21,8 @@ extraction block) with the grid value kernel's 256^3 rows of phase 3.
 `parallel` trains phase 4's run, writes phase 6's fixture checkpoint and
 runs phase 12 (the multi-device path: a NCCL group of world 1 in the
 process, and on a machine with two cards or more the spawned multi-rank
-CLI runs). `ranks` runs only those multi-rank CLI runs (2 and 4 ranks
+CLI runs). `ranks` runs only those multi-rank CLI runs (training, then
+`--mode extract_edge` on phase 6's fixture checkpoint, at 2 and 4 ranks
 against one process), so that a four-card machine's time goes to what
 needs four cards. `public` runs phase 13 (the JAX package's last public
 functions: a thick-line PidiNet scene trained on at Replica width,
@@ -155,12 +156,20 @@ def ranks(tmp: str, smi: str) -> bool:
     import torch
 
     import chip_smoke as cs
+    from emap_tpu_torch import config
+    from emap_tpu_torch.fields.udf import UDFConfig
 
     cs.check(torch.cuda.device_count() >= 2, "the multi-rank runs need 2 "
              "cards or more")
     conf_path = cs.write_run_conf(tmp)
-    return attempt("phase 12's multi-rank runs",
-                   lambda: cs.multi_rank_check(conf_path, tmp, smi))
+    trained = attempt("phase 12's multi-rank training",
+                      lambda: cs.multi_rank_check(conf_path, tmp, smi))
+    ucfg = UDFConfig.from_conf(config.parse_file(conf_path).get_config(
+        "model.udf_network"))
+    cs.fixture_checkpoint(conf_path, ucfg)
+    return attempt("phase 12's multi-rank extraction",
+                   lambda: cs.multi_rank_extract_check(conf_path, tmp,
+                                                       smi)) and trained
 
 
 def public(tmp: str, smi: str) -> bool:

@@ -1,6 +1,6 @@
 """scripts/torch_seed_suite.py on the CPU: `compare` on the JAX package's own
-Replica runs, the log parser, and `run`'s planner with a stub in place of
-scripts/torch_run_production.py (no training)."""
+Replica, ABC cube and ABC rings runs, the log parser, and `run`'s planner
+with a stub in place of scripts/torch_run_production.py (no training)."""
 
 import json
 import os
@@ -16,6 +16,19 @@ import torch_seed_suite as suite  # noqa: E402
 
 # RESULTS.md:22, the JAX band's Replica seeds
 RESULTS_REPLICA = {7: 0.7164, 99: 0.6692, 3: 0.7506, 1234: 0.6816}
+# RESULTS.md:19-20, the JAX ABC runs of seeds 42/7/99/3/1234: F@5mm, the
+# picked threshold, lines and curves (report.json; a pick from the log
+# where the run left no selector table)
+RESULTS_ABC = {
+    ("cube", 42): (0.8149, 0.02, 21, 6), ("cube", 7): (0.8715, 0.03, 25, 3),
+    ("cube", 99): (0.9548, 0.02, 23, 6), ("cube", 3): (0.9222, 0.02, 29, 7),
+    ("cube", 1234): (0.8449, 0.02, 31, 7),
+    ("rings", 42): (0.4122, 0.02, 62, 30),
+    ("rings", 7): (0.3958, 0.02, 50, 35),
+    ("rings", 99): (0.3131, 0.02, 72, 35),
+    ("rings", 3): (0.3733, 0.02, 55, 37),
+    ("rings", 1234): (0.4264, 0.02, 57, 39),
+}
 
 
 @pytest.mark.parametrize("seed", sorted(RESULTS_REPLICA))
@@ -28,9 +41,52 @@ def test_compare_reads_the_jax_replica_runs(seed):
     assert set(suite.STEPS) <= set(run["rows"])
 
 
+@pytest.mark.parametrize("obj,seed", sorted(RESULTS_ABC))
+def test_compare_reads_the_jax_abc_runs(obj, seed):
+    """The ABC cube's runs of prod_suite_r4/final_s* and the rings' of
+    prod_rings_r5/s*: score, pick and counts, the selector's 4 thresholds x
+    4 fit draws where the run wrote them, the training rows to 50,000."""
+    run = suite.jax_run("ABC", obj, seed)
+    f5, picked, lines, curves = RESULTS_ABC[(obj, seed)]
+    got = run["summary"]
+    assert (got["f5"], got["picked"], got["lines"], got["curves"]) == (
+        f5, picked, lines, curves)
+    assert len(run["candidates"]) in ((0,) if got["points"] is None
+                                      else (16,))
+    assert {1000, 10000, 50000} <= set(run["rows"])
+    assert run["rows"][50000]["udf_min"] > 0
+
+
+def _port_report(root, name, f5):
+    os.makedirs(root / name)
+    (root / name / "report.json").write_text(json.dumps({"score": {
+        "fscore_0.005": f5, "fscore_0.01": 0.99, "precision_0.005": 0.9,
+        "recall_0.005": 0.9, "n_lines": 20, "n_curves": 5}}))
+
+
+def test_compare_keeps_the_rings_apart_from_the_cube(tmp_path, capsys):
+    """Port runs of the ABC cube and the rings are held against their own
+    bands (RESULTS.md:19-20: 0.8718 ± 0.0684, bar 0.735; 0.384 ± 0.044,
+    bar 0.296), each beside its same-seed JAX run."""
+    _port_report(tmp_path, "ABC_cube_s7", 0.90)
+    _port_report(tmp_path, "ABC_rings_s42", 0.40)
+    _port_report(tmp_path, "ABC_rings_s7", 0.36)
+    out = suite.compare(str(tmp_path))
+    cube, rings = out[("ABC", "cube")], out[("ABC", "rings")]
+    assert (round(cube["jax_mean"], 4), round(cube["jax_sd"], 4),
+            round(cube["bar"], 3)) == (0.8718, 0.0684, 0.735)
+    assert cube["port_seeds"] == [7] and cube["met"]
+    assert (round(rings["jax_mean"], 3), round(rings["jax_sd"], 3),
+            round(rings["bar"], 3)) == (0.384, 0.044, 0.295)
+    assert rings["port_seeds"] == [7, 42] and rings["port_f5"] == [0.36, 0.40]
+    text = capsys.readouterr().out
+    assert "== ABC rings seed 42 ==" in text and "ABC rings: port" in text
+    assert "ABC cube: port" in text
+
+
 def test_compare_band_and_seed_42(tmp_path, capsys):
     out = suite.compare(str(tmp_path))
-    rep = out["Replica"]
+    rep = out[("Replica", "cube")]
     assert round(rep["jax_mean"], 4) == 0.7061
     assert round(rep["jax_sd"], 4) == 0.0320
     assert round(rep["bar"], 4) == 0.6421
