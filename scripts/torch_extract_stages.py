@@ -40,7 +40,8 @@ and the share of the fit's voxels whose averaged direction it has lost.
 it through the JAX package's (resolution --res, no visibility filter),
 scores it and prints the counts, so that each cloud goes through each
 package's fit; once with the dump's line directions as they are and once
-turned by extract/pointcloud.py::canonical_sign.
+turned by extract/pointcloud.py::canonical_sign. Each row gives the share
+of directions that canonical_sign turns (`signs_changed`).
 
 To diff the port against the JAX package on the same checkpoint, dump the
 JAX package's stages with `python tests/test_torch_extract_stages.py CONF
@@ -192,6 +193,7 @@ def main(argv=None) -> int:
         dump = np.load(args.fit_dump)
         dirs = dump["line_dirs"].astype(np.float32)
         turned = canonical_sign(torch.as_tensor(dirs)).numpy()
+        changed = float(np.mean(np.sum(dirs * turned, axis=1) < 0))
         for signs, d in (("as_dumped", dirs), ("canonical_sign", turned)):
             row = fit_counts(dump["xyz"], d,
                              dict(opts, visible_checking=False),
@@ -199,7 +201,8 @@ def main(argv=None) -> int:
                              os.path.join(args.out_dir, signs), args.obj)
             print(json.dumps({"dump": args.fit_dump, "signs": signs,
                               "backend": str(dump["backend"]),
-                              "cloud": int(len(dump["xyz"])), **row}))
+                              "cloud": int(len(dump["xyz"])),
+                              "signs_changed": changed, **row}))
         return 0
 
     if args.device == "cuda" and not torch.cuda.is_available():

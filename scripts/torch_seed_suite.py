@@ -29,11 +29,16 @@ lines, curves and primitive points; the selector's table candidate by
 candidate; and the training metrics at STEPS. For each conf and object
 (the ABC cube apart from the ABC rings) it prints the port's mean and sd
 of F@5mm over its seeds beside the JAX band of RESULTS.md and the bar
-(mean less two sd), and Welch's t of the two means.
-Seed 42 enters the port's side with the checkpoint's numbers as measured
-after the sign repair (PORT_SEED42) unless a report of it is under the
-root; the JAX run of seed 42 left no report of its own pick, so that seed
-has no same-seed table.
+(mean less two sd), and Welch's t of the two means. Each pair's header
+row gives the port's primitive points as a percentage of the JAX run's,
+and a last pooled row counts, over every pair with points on both sides,
+the pairs above JAX, the mean and median excess, and how many of those
+above JAX also have the lower precision at 5 mm (where both are known).
+The port's runs whose directories are not under the root enter with the
+summaries recorded for them (PORT_RECORDED, marked "recorded"); a report
+under the root replaces the recorded row of its seed. The JAX run of
+Replica seed 42 left no report of its own pick, so that seed has no
+same-seed table.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -87,12 +93,25 @@ JAX_BAND = {
                           1234: 0.6816},
     ("DTU", "cube"): {42: 0.9424, 7: 0.9375, 99: 0.9253, 3: 0.9246},
 }
-# The port's seed-42 Replica checkpoint, re-extracted with the line
-# directions' sign repaired (PERF.md section 5; H100 80GB HBM3, 700 W).
-PORT_SEED42 = {
-    ("Replica", "cube"): {"picked": 0.005, "f5": 0.6346, "f10": 0.8147,
-                          "p5": 0.486, "r5": None, "lines": 221, "curves": 79,
-                          "points": 5735},
+# The port's runs recorded in PERF.md section 5 (on an NVIDIA H100 80GB
+# HBM3 at 700 W, after the sign repair), whose directories are not in the
+# repo: each (conf, obj, seed)'s summary, None where not recorded.
+PORT_RECORDED = {
+    ("Replica", "cube", 42): {"picked": 0.005, "f5": 0.6346, "f10": 0.8147,
+                              "p5": 0.486, "r5": None, "lines": 221,
+                              "curves": 79, "points": 5735},
+    ("Replica", "cube", 3): {"picked": 0.005, "f5": 0.7300, "f10": None,
+                             "p5": None, "r5": None, "lines": 183,
+                             "curves": 64, "points": 4943},
+    ("Replica", "cube", 7): {"picked": 0.005, "f5": 0.7631, "f10": None,
+                             "p5": None, "r5": None, "lines": 173,
+                             "curves": 62, "points": 4492},
+    ("DTU", "cube", 7): {"picked": 0.005, "f5": 0.9286, "f10": 0.9979,
+                         "p5": 0.8927, "r5": 0.9675, "lines": 107,
+                         "curves": 41, "points": 3617},
+    ("ABC", "rings", 42): {"picked": 0.02, "f5": 0.3845, "f10": 0.9028,
+                           "p5": 0.3169, "r5": 0.4889, "lines": 58,
+                           "curves": 31, "points": 3949},
 }
 
 
@@ -334,15 +353,23 @@ def compare(root: str) -> dict:
     """Print the tables; return each (conf, obj)'s seeds, mean, band and
     t."""
     ports = port_runs(root)
-    for (conf, obj), s42 in PORT_SEED42.items():
-        ports.setdefault((conf, obj, 42), {"summary": s42, "candidates": [],
-                                           "rows": {}})
+    for key, recorded in PORT_RECORDED.items():
+        ports.setdefault(key, {"summary": recorded, "candidates": [],
+                               "rows": {}, "recorded": True})
     out: dict = {}
+    pairs = []
     keys = ("picked", "f5", "f10", "p5", "r5", "lines", "curves", "points")
     for key in sorted(ports):
         conf, obj, seed = key
         port, jax = ports[key], jax_run(*key)
-        print(f"\n== {conf} {obj} seed {seed} ==")
+        pct = points_pct(port["summary"], jax["summary"]) if jax else None
+        if pct is not None:
+            pairs.append({"key": key, "pct": pct,
+                          "p5": (port["summary"]["p5"], jax["summary"]["p5"])})
+        print(f"\n== {conf} {obj} seed {seed} =="
+              + (" (recorded)" if port.get("recorded") else "")
+              + (f" points {pct:.1f}% of JAX's ({pct - 100:+.1f}%)"
+                 if pct is not None else ""))
         print(f"{'':8}" + "".join(f"{k:>9}" for k in keys))
         print(f"{'port':8}" + "".join(f"{fmt(port['summary'][k]):>9}"
                                       for k in keys))
@@ -388,7 +415,36 @@ def compare(root: str) -> dict:
               f"{res['bar']:.4f}: {'met' if res['met'] else 'NOT met'}; "
               f"Welch t {res['welch']['t']:.3f}, df {res['welch']['df']:.2f}, "
               f"p {res['welch']['p']:.3g}")
+    if pairs:
+        row = out["pooled"] = pooled(pairs)
+        print(f"\npooled points over {row['n']} pairs: {row['above']} above "
+              f"JAX's; excess mean {row['mean_excess']:+.1f}%, median "
+              f"{row['median_excess']:+.1f}%; of {row['above_with_p5']} above"
+              f" with P@5mm on both sides, {row['above_lower_p5']} with the "
+              f"lower P@5mm")
     return out
+
+
+def points_pct(port: dict, jax: dict) -> float | None:
+    """The port's primitive points as a percentage of the JAX run's."""
+    if port["points"] is None or not jax["points"]:
+        return None
+    return 100.0 * port["points"] / jax["points"]
+
+
+def pooled(pairs: list) -> dict:
+    """Over every pair with points on both sides: how many run above JAX,
+    the mean and median excess (%), and of those above JAX whose P@5mm is
+    known on both sides, how many have the lower one."""
+    excess = [p["pct"] - 100.0 for p in pairs]
+    above = [p for p in pairs if p["pct"] > 100.0]
+    known = [p for p in above if None not in p["p5"]]
+    return {"pct": {":".join(map(str, p["key"])): p["pct"] for p in pairs},
+            "n": len(excess), "above": len(above),
+            "mean_excess": statistics.fmean(excess),
+            "median_excess": statistics.median(excess),
+            "above_with_p5": len(known),
+            "above_lower_p5": sum(p["p5"][0] < p["p5"][1] for p in known)}
 
 
 def main(argv=None, script: str = PRODUCTION,

@@ -85,13 +85,93 @@ def test_compare_keeps_the_rings_apart_from_the_cube(tmp_path, capsys):
 
 
 def test_compare_band_and_seed_42(tmp_path, capsys):
+    """With nothing under the root the Replica band holds the port's
+    recorded seeds 42/3/7 (PR 19's gate: 0.7092 ± 0.0667)."""
     out = suite.compare(str(tmp_path))
     rep = out[("Replica", "cube")]
     assert round(rep["jax_mean"], 4) == 0.7061
     assert round(rep["jax_sd"], 4) == 0.0320
     assert round(rep["bar"], 4) == 0.6421
-    assert rep["port_seeds"] == [42] and rep["port_f5"] == [0.6346]
+    assert rep["port_seeds"] == [3, 7, 42]
+    assert rep["port_f5"] == [0.7300, 0.7631, 0.6346]
+    assert (round(rep["port_mean"], 4), round(rep["port_sd"], 4)) == (
+        0.7092, 0.0667)
     assert "no same-seed table" in capsys.readouterr().out
+
+
+# The JAX DTU runs' primitive points at their pick, 0.005
+# (e2e_dtu200k_s7/report.json's threshold_selection,
+# r5_200k/dtu_s{99,3}/threshold_selection.json) and P@5mm (report.json)
+JAX_DTU = {7: (3171, 0.918), 99: (3486, 0.8923), 3: (3246, 0.8921)}
+
+
+def _port_run(root, name, f5, points, p5):
+    """A port report with a one-row selector table at the pick 0.005."""
+    os.makedirs(root / name)
+    (root / name / "report.json").write_text(json.dumps({
+        "score": {"fscore_0.005": f5, "fscore_0.01": 0.99,
+                  "precision_0.005": p5, "recall_0.005": 0.96,
+                  "n_lines": 100, "n_curves": 40},
+        "threshold_selection": {"picked": 0.005, "candidates": [
+            {"udf_threshold": 0.005, "n_points": points, "picked": True}]}}))
+
+
+@pytest.mark.parametrize("seed", sorted(JAX_DTU))
+def test_compare_reads_the_jax_dtu_points(seed):
+    got = suite.jax_run("DTU", "cube", seed)["summary"]
+    assert (got["points"], got["p5"]) == JAX_DTU[seed]
+    assert got["picked"] == 0.005
+
+
+@pytest.mark.parametrize("seed,points", [(99, 4009), (3, 3246), (99, 3137)])
+def test_compare_prints_points_as_a_percentage_of_jax(tmp_path, capsys,
+                                                      seed, points):
+    _port_run(tmp_path, f"DTU_cube_s{seed}", 0.92, points, 0.9)
+    out = suite.compare(str(tmp_path))
+    pct = 100.0 * points / JAX_DTU[seed][0]
+    assert out["pooled"]["pct"][f"DTU:cube:{seed}"] == pytest.approx(pct)
+    text = capsys.readouterr().out
+    assert (f"== DTU cube seed {seed} == points {pct:.1f}% of JAX's "
+            f"({pct - 100:+.1f}%)") in text
+
+
+def test_compare_pools_recorded_and_rooted_pairs(tmp_path, capsys):
+    """The pooled row over the recorded pairs (DTU 7 +14.1%, rings 42
+    +10.0%, Replica 3 +7.6%, Replica 7 -4.8%) and two rooted DTU seeds; the
+    DTU band over 7 (recorded), 99 and 3."""
+    _port_run(tmp_path, "DTU_cube_s99", 0.93, 3835, 0.88)  # +10.0%, lower P
+    _port_run(tmp_path, "DTU_cube_s3", 0.91, 3084, 0.90)   # -5.0%
+    out = suite.compare(str(tmp_path))
+    pool = out["pooled"]
+    want = {"ABC:rings:42": 3949 / 3589, "DTU:cube:7": 3617 / 3171,
+            "DTU:cube:99": 3835 / 3486, "DTU:cube:3": 3084 / 3246,
+            "Replica:cube:3": 4943 / 4596, "Replica:cube:7": 4492 / 4720}
+    assert pool["pct"] == pytest.approx({k: 100 * v for k, v in want.items()})
+    excess = sorted(100 * v - 100 for v in want.values())
+    assert (pool["n"], pool["above"]) == (6, 4)
+    assert pool["mean_excess"] == pytest.approx(sum(excess) / 6)
+    assert pool["median_excess"] == pytest.approx((excess[2] + excess[3]) / 2)
+    # above JAX: rings 42, DTU 7 and 99 with P@5mm on both sides, each
+    # lower; Replica 3 has no recorded P@5mm
+    assert (pool["above_with_p5"], pool["above_lower_p5"]) == (3, 3)
+    dtu = out[("DTU", "cube")]
+    assert dtu["port_seeds"] == [3, 7, 99]
+    assert dtu["port_f5"] == [0.91, 0.9286, 0.93]
+    text = capsys.readouterr().out
+    assert "== DTU cube seed 7 == (recorded) points 114.1%" in text
+    assert "pooled points over 6 pairs: 4 above JAX's" in text
+
+
+def test_compare_a_rooted_run_replaces_the_recorded_one(tmp_path, capsys):
+    _port_run(tmp_path, "DTU_cube_s7", 0.95, 3171, 0.93)
+    out = suite.compare(str(tmp_path))
+    assert out[("DTU", "cube")]["port_f5"] == [0.95]
+    assert out["pooled"]["pct"]["DTU:cube:7"] == pytest.approx(100.0)
+    assert out["pooled"]["above"] == 2  # rings 42 and Replica 3
+    assert out["pooled"]["above_lower_p5"] == 1
+    text = capsys.readouterr().out
+    assert "== DTU cube seed 7 == points 100.0% of JAX's (+0.0%)" in text
+    assert "DTU cube seed 7 == (recorded)" not in text
 
 
 def test_log_parser_reads_the_jax_runner_rows():
