@@ -4,7 +4,7 @@ twin of scripts/diag_platform.py's `stage` command, on the card or the CPU.
 
     python3 scripts/torch_extract_stages.py CONF OUT_DIR [--ckpt PATH]
         [--res N] [--thresholds T,T,...] [--iters N] [--device cuda|cpu]
-        [--obj cube|rings] [--no-fit]
+        [--obj cube|rings] [--seed S] [--no-fit]
     python3 scripts/torch_extract_stages.py CONF OUT_DIR --fit-dump NPZ
         [--res N] [--obj cube|rings]
 
@@ -14,7 +14,8 @@ scripts/torch_run_production.py). The port's runner loads the checkpoint
 and extract_pointcloud_multi runs the conf's `edge_extraction` block:
 resolution, the thresholds (`auto_threshold`, else `udf_threshold`),
 sampling_N, sampling_delta, is_pointshift, iters and is_linedirection,
-with the options above put in their place. For each threshold t it writes
+with the options above put in their place (--seed: the line-direction
+jitter's seed, the runner's 42 by default). For each threshold t it writes
 OUT_DIR/stages_<t>.npz in the layout that `scripts/diag_platform.py
 compare` and `fit` read, with their keys and units (backend, prec, quant,
 cand_idx: flat indices of the grid voxels under t; df0, nrm0: the first
@@ -183,6 +184,8 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--obj", default="cube", choices=["cube", "rings"])
+    p.add_argument("--seed", type=int, default=42,
+                   help="the line-direction jitter's seed (the runner's 42)")
     p.add_argument("--no-fit", dest="fit", action="store_false")
     p.add_argument("--fit-dump", default="")
     args = p.parse_args(argv)
@@ -227,8 +230,8 @@ def main(argv=None) -> int:
         params, runner.ucfg, opts["resolution"], opts["thresholds"],
         sampling_N=opts["sampling_N"], sampling_delta=opts["sampling_delta"],
         is_pointshift=opts["is_pointshift"], iters=opts["iters"],
-        is_linedirection=opts["is_linedirection"], trace=trace,
-        stages=stages)
+        is_linedirection=opts["is_linedirection"], seed=args.seed,
+        trace=trace, stages=stages)
     extract_s = time.perf_counter() - t0
     backend = f"torch-{args.device}"
     rows = {}

@@ -31,9 +31,15 @@ candidate; and the training metrics at STEPS. For each conf and object
 of F@5mm over its seeds beside the JAX band of RESULTS.md and the bar
 (mean less two sd), and Welch's t of the two means. Each pair's header
 row gives the port's primitive points as a percentage of the JAX run's,
-and a last pooled row counts, over every pair with points on both sides,
-the pairs above JAX, the mean and median excess, and how many of those
-above JAX also have the lower precision at 5 mm (where both are known).
+and its lines + curves beside the JAX run's and as a ratio of them; a
+last pooled row counts, over every pair with points on both sides, the
+pairs above JAX, the mean and median excess, how many of those above JAX
+also have the lower precision at 5 mm (where both are known), and the
+exact one-sided sign test's p of so many above (ties with JAX left out).
+Where both runs left a selector table, the pair also gives both sides'
+points at the JAX run's picked threshold, each the mean over its fit
+draws, and a second pooled row counts those (a pick that differs moves
+the points at the pick by the threshold alone).
 The port's runs whose directories are not under the root enter with the
 summaries recorded for them (PORT_RECORDED, marked "recorded"); a report
 under the root replaces the recorded row of its seed. The JAX run of
@@ -109,9 +115,18 @@ PORT_RECORDED = {
     ("DTU", "cube", 7): {"picked": 0.005, "f5": 0.9286, "f10": 0.9979,
                          "p5": 0.8927, "r5": 0.9675, "lines": 107,
                          "curves": 41, "points": 3617},
+    ("DTU", "cube", 99): {"picked": 0.005, "f5": 0.9335, "f10": 0.9950,
+                          "p5": 0.9004, "r5": 0.9692, "lines": 82,
+                          "curves": 46, "points": 3503},
+    ("DTU", "cube", 3): {"picked": 0.005, "f5": 0.9426, "f10": 0.9961,
+                         "p5": 0.9231, "r5": 0.9629, "lines": 89,
+                         "curves": 43, "points": 3327},
     ("ABC", "rings", 42): {"picked": 0.02, "f5": 0.3845, "f10": 0.9028,
                            "p5": 0.3169, "r5": 0.4889, "lines": 58,
                            "curves": 31, "points": 3949},
+    ("ABC", "cube", 42): {"picked": None, "f5": 0.9187, "f10": 0.990,
+                          "p5": None, "r5": None, "lines": 29, "curves": 4,
+                          "points": None},
 }
 
 
@@ -357,7 +372,7 @@ def compare(root: str) -> dict:
         ports.setdefault(key, {"summary": recorded, "candidates": [],
                                "rows": {}, "recorded": True})
     out: dict = {}
-    pairs = []
+    pairs, same_pairs = [], []
     keys = ("picked", "f5", "f10", "p5", "r5", "lines", "curves", "points")
     for key in sorted(ports):
         conf, obj, seed = key
@@ -366,10 +381,21 @@ def compare(root: str) -> dict:
         if pct is not None:
             pairs.append({"key": key, "pct": pct,
                           "p5": (port["summary"]["p5"], jax["summary"]["p5"])})
+        same = (same_threshold(port["candidates"], jax["candidates"],
+                               jax["summary"]["picked"]) if jax else None)
+        if same is not None:
+            same_pairs.append({"key": key, "pct": same["pct"]})
+        prims = (primitives(port["summary"], jax["summary"]) if jax
+                 else None)
+        if prims is not None:
+            out.setdefault("primitives", {})[":".join(map(str, key))] = prims
         print(f"\n== {conf} {obj} seed {seed} =="
               + (" (recorded)" if port.get("recorded") else "")
               + (f" points {pct:.1f}% of JAX's ({pct - 100:+.1f}%)"
-                 if pct is not None else ""))
+                 if pct is not None else "")
+              + (f" lines + curves {prims[0]} / {prims[1]} "
+                 f"({prims[0] / prims[1]:.2f}x JAX's)"
+                 if prims is not None else ""))
         print(f"{'':8}" + "".join(f"{k:>9}" for k in keys))
         print(f"{'port':8}" + "".join(f"{fmt(port['summary'][k]):>9}"
                                       for k in keys))
@@ -381,6 +407,10 @@ def compare(root: str) -> dict:
                                          for k in keys))
             cols = ("udf_threshold", "n_points", "n_lines", "n_curves",
                     "precision3d", "f3d")
+            if same is not None:
+                print(f"at JAX's pick {same['threshold']:g}, mean of the fit "
+                      f"draws: port {same['port']:.1f} points, JAX "
+                      f"{same['jax']:.1f} ({same['pct']:.1f}%)")
             print("selector: " + " ".join(f"{c:>13}" for c in cols))
             for side, run_ in (("port", port), ("JAX", jax)):
                 for c in run_["candidates"]:
@@ -415,13 +445,22 @@ def compare(root: str) -> dict:
               f"{res['bar']:.4f}: {'met' if res['met'] else 'NOT met'}; "
               f"Welch t {res['welch']['t']:.3f}, df {res['welch']['df']:.2f}, "
               f"p {res['welch']['p']:.3g}")
+    if same_pairs:
+        row = out["pooled_same_threshold"] = pooled(same_pairs)
+        print(f"\npooled points at JAX's pick, mean of the fit draws, over "
+              f"{row['n']} pairs with both tables: {row['above']} above "
+              f"JAX's; excess mean {row['mean_excess']:+.1f}%, median "
+              f"{row['median_excess']:+.1f}%; one-sided sign test p = "
+              f"{row['sign_p'][0]}/{row['sign_p'][1]}")
     if pairs:
         row = out["pooled"] = pooled(pairs)
         print(f"\npooled points over {row['n']} pairs: {row['above']} above "
               f"JAX's; excess mean {row['mean_excess']:+.1f}%, median "
               f"{row['median_excess']:+.1f}%; of {row['above_with_p5']} above"
               f" with P@5mm on both sides, {row['above_lower_p5']} with the "
-              f"lower P@5mm")
+              f"lower P@5mm; one-sided sign test p = {row['sign_p'][0]}/"
+              f"{row['sign_p'][1]} ≈ {row['sign_p'][0] / row['sign_p'][1]:.3g}"
+              f" over {row['sign_n']} untied pairs")
     return out
 
 
@@ -432,19 +471,55 @@ def points_pct(port: dict, jax: dict) -> float | None:
     return 100.0 * port["points"] / jax["points"]
 
 
+def same_threshold(port_rows: list, jax_rows: list,
+                   threshold: float | None) -> dict | None:
+    """Both selector tables at the JAX run's picked threshold: each side's
+    points as the mean over its fit draws there, and the port's as a
+    percentage of JAX's. A pick that differs moves the points at the pick
+    (a higher threshold keeps more voxels); this holds the threshold."""
+    def mean_points(rows):
+        vals = [r["n_points"] for r in rows
+                if r["udf_threshold"] == threshold]
+        return statistics.fmean(vals) if vals else None
+
+    if threshold is None:
+        return None
+    port, jax = mean_points(port_rows), mean_points(jax_rows)
+    if port is None or not jax:
+        return None
+    return {"threshold": threshold, "port": port, "jax": jax,
+            "pct": 100.0 * port / jax}
+
+
+def primitives(port: dict, jax: dict) -> tuple | None:
+    """The port's and the JAX run's lines + curves, where both are known."""
+    if None in (port["lines"], port["curves"], jax["lines"], jax["curves"]):
+        return None
+    return port["lines"] + port["curves"], jax["lines"] + jax["curves"]
+
+
+def sign_test(above: int, n: int) -> tuple:
+    """The exact one-sided sign test: the chance of `above` or more of `n`
+    pairs above JAX were each pair a fair coin, as (numerator, 2**n)."""
+    return sum(math.comb(n, k) for k in range(above, n + 1)), 2 ** n
+
+
 def pooled(pairs: list) -> dict:
     """Over every pair with points on both sides: how many run above JAX,
-    the mean and median excess (%), and of those above JAX whose P@5mm is
-    known on both sides, how many have the lower one."""
+    the mean and median excess (%), of those above JAX whose P@5mm is known
+    on both sides how many have the lower one, and the sign test's p over
+    the pairs not tied with JAX."""
     excess = [p["pct"] - 100.0 for p in pairs]
     above = [p for p in pairs if p["pct"] > 100.0]
-    known = [p for p in above if None not in p["p5"]]
+    known = [p for p in above if None not in p.get("p5", (None,))]
+    untied = sum(p["pct"] != 100.0 for p in pairs)
     return {"pct": {":".join(map(str, p["key"])): p["pct"] for p in pairs},
             "n": len(excess), "above": len(above),
             "mean_excess": statistics.fmean(excess),
             "median_excess": statistics.median(excess),
             "above_with_p5": len(known),
-            "above_lower_p5": sum(p["p5"][0] < p["p5"][1] for p in known)}
+            "above_lower_p5": sum(p["p5"][0] < p["p5"][1] for p in known),
+            "sign_n": untied, "sign_p": sign_test(len(above), untied)}
 
 
 def main(argv=None, script: str = PRODUCTION,

@@ -13,14 +13,15 @@ twin of scripts/torch_extract_stages.py:
 
     python tests/test_torch_extract_stages.py CONF OUT_DIR [--ckpt PATH]
         [--res N] [--thresholds T,T,...] [--iters N] [--prec TIER]
-        [--obj cube|rings] [--no-fit]
+        [--obj cube|rings] [--seed S] [--no-fit]
 
 It writes OUT_DIR/stages_<t>.npz (the keys and units of
 `diag_platform.py compare`) and OUT_DIR/stage_counts.json (the grid mask
 count, the cloud size, lines and curves before and after the merge, the
 final counts, the primitives' sample points and F@5/10/20mm from the JAX
 package's fit and scoring, and |udf| at the scene's analytic edge points).
-`--prec` pins the model tier ("" keeps the conf's).
+`--prec` pins the model tier ("" keeps the conf's); `--seed` is the
+line-direction jitter's seed (42, the runner's, by default).
 """
 
 import argparse
@@ -411,6 +412,7 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--prec", default="")
     p.add_argument("--obj", default="cube", choices=["cube", "rings"])
+    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no-fit", dest="fit", action="store_false")
     args = p.parse_args(argv)
 
@@ -444,7 +446,7 @@ def main(argv=None) -> int:
         params, ucfg, opts["resolution"], opts["thresholds"],
         sampling_N=opts["sampling_N"], sampling_delta=opts["sampling_delta"],
         is_pointshift=opts["is_pointshift"], iters=opts["iters"],
-        is_linedirection=opts["is_linedirection"])
+        is_linedirection=opts["is_linedirection"], seed=args.seed)
     extract_s = time.perf_counter() - t0
     data_dir = os.path.join(conf["dataset.data_dir"],
                             str(conf["dataset.scan"]))

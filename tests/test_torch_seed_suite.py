@@ -4,6 +4,7 @@ with a stub in place of scripts/torch_run_production.py (no training)."""
 
 import json
 import os
+import statistics
 import sys
 import textwrap
 
@@ -75,7 +76,8 @@ def test_compare_keeps_the_rings_apart_from_the_cube(tmp_path, capsys):
     cube, rings = out[("ABC", "cube")], out[("ABC", "rings")]
     assert (round(cube["jax_mean"], 4), round(cube["jax_sd"], 4),
             round(cube["bar"], 3)) == (0.8718, 0.0684, 0.735)
-    assert cube["port_seeds"] == [7] and cube["met"]
+    assert cube["port_seeds"] == [7, 42] and cube["met"]  # 42 recorded
+    assert cube["port_f5"] == [0.90, 0.9187]
     assert (round(rings["jax_mean"], 3), round(rings["jax_sd"], 3),
             round(rings["bar"], 3)) == (0.384, 0.044, 0.295)
     assert rings["port_seeds"] == [7, 42] and rings["port_f5"] == [0.36, 0.40]
@@ -123,16 +125,72 @@ def test_compare_reads_the_jax_dtu_points(seed):
     assert got["picked"] == 0.005
 
 
+# The JAX DTU runs' lines + curves (report.json)
+JAX_DTU_PRIMITIVES = {7: 131, 99: 143, 3: 124}
+
+
 @pytest.mark.parametrize("seed,points", [(99, 4009), (3, 3246), (99, 3137)])
 def test_compare_prints_points_as_a_percentage_of_jax(tmp_path, capsys,
                                                       seed, points):
+    """Each pair's header: the port's points as a percentage of JAX's and
+    its lines + curves (here 100 + 40) beside JAX's, with their ratio."""
     _port_run(tmp_path, f"DTU_cube_s{seed}", 0.92, points, 0.9)
     out = suite.compare(str(tmp_path))
     pct = 100.0 * points / JAX_DTU[seed][0]
     assert out["pooled"]["pct"][f"DTU:cube:{seed}"] == pytest.approx(pct)
+    jax_prims = JAX_DTU_PRIMITIVES[seed]
+    assert out["primitives"][f"DTU:cube:{seed}"] == (140, jax_prims)
     text = capsys.readouterr().out
     assert (f"== DTU cube seed {seed} == points {pct:.1f}% of JAX's "
-            f"({pct - 100:+.1f}%)") in text
+            f"({pct - 100:+.1f}%) lines + curves 140 / {jax_prims} "
+            f"({140 / jax_prims:.2f}x JAX's)") in text
+
+
+def test_compare_pools_the_recorded_pairs_on_an_empty_root(tmp_path, capsys):
+    """Every recorded pair enters without its run directory: DTU 7/99/3,
+    rings 42 and Replica 3/7 pool (5 above JAX, sign test p = 7/64), and
+    the ABC cube's gate row holds its recorded seed 42 (no points)."""
+    out = suite.compare(str(tmp_path))
+    pool = out["pooled"]
+    assert sorted(pool["pct"]) == ["ABC:rings:42", "DTU:cube:3", "DTU:cube:7",
+                                   "DTU:cube:99", "Replica:cube:3",
+                                   "Replica:cube:7"]
+    assert (pool["n"], pool["above"], pool["sign_n"]) == (6, 5, 6)
+    assert pool["sign_p"] == (7, 64)
+    assert pool["mean_excess"] == pytest.approx(5.0, abs=0.05)
+    cube = out[("ABC", "cube")]
+    assert (cube["port_seeds"], cube["port_f5"]) == ([42], [0.9187])
+    dtu = out[("DTU", "cube")]
+    assert (round(dtu["port_mean"], 4), round(dtu["port_sd"], 4)) == (
+        0.9349, 0.0071)
+    assert out["primitives"]["ABC:cube:42"] == (33, 27)
+    assert "Replica:cube:42" not in out["primitives"]  # no JAX run
+    text = capsys.readouterr().out
+    assert ("== ABC cube seed 42 == (recorded) lines + curves 33 / 27 "
+            "(1.22x JAX's)") in text
+    assert "== Replica cube seed 42 == (recorded)\n" in text
+    assert ("pooled points over 6 pairs: 5 above JAX's" in text
+            and "one-sided sign test p = 7/64 ≈ 0.109 over 6 untied pairs"
+            in text)
+
+
+@pytest.mark.parametrize("above,n,p", [
+    (5, 6, (7, 64)), (9, 11, (67, 2048)), (8, 11, (232, 2048)),
+    (0, 3, (8, 8)), (3, 3, (1, 8))])
+def test_sign_test_is_the_exact_binomial_tail(above, n, p):
+    assert suite.sign_test(above, n) == p
+
+
+def test_compare_prints_primitives_where_jax_has_no_points(tmp_path,
+                                                           capsys):
+    """The JAX cube run of seed 99 left no selector table: its pair has
+    lines + curves (23 + 6) but no points, and enters no pooled row."""
+    _port_report(tmp_path, "ABC_cube_s99", 0.93)  # 20 lines + 5 curves
+    out = suite.compare(str(tmp_path))
+    assert out["primitives"]["ABC:cube:99"] == (25, 29)
+    assert "ABC:cube:99" not in out["pooled"]["pct"]
+    text = capsys.readouterr().out
+    assert "== ABC cube seed 99 == lines + curves 25 / 29 (0.86x JAX's)" in text
 
 
 def test_compare_pools_recorded_and_rooted_pairs(tmp_path, capsys):
@@ -165,10 +223,14 @@ def test_compare_pools_recorded_and_rooted_pairs(tmp_path, capsys):
 def test_compare_a_rooted_run_replaces_the_recorded_one(tmp_path, capsys):
     _port_run(tmp_path, "DTU_cube_s7", 0.95, 3171, 0.93)
     out = suite.compare(str(tmp_path))
-    assert out[("DTU", "cube")]["port_f5"] == [0.95]
+    # seeds 3, 7 (rooted), 99: the rooted 7 in place of its recorded row
+    assert out[("DTU", "cube")]["port_f5"] == [0.9426, 0.95, 0.9335]
     assert out["pooled"]["pct"]["DTU:cube:7"] == pytest.approx(100.0)
-    assert out["pooled"]["above"] == 2  # rings 42 and Replica 3
-    assert out["pooled"]["above_lower_p5"] == 1
+    # rings 42, Replica 3, DTU 99 and 3 (recorded); DTU 7 ties, so the
+    # sign test leaves it out: 4 of 5 above, p = 6/32
+    assert out["pooled"]["above"] == 4
+    assert out["pooled"]["above_lower_p5"] == 1  # rings 42
+    assert (out["pooled"]["sign_n"], out["pooled"]["sign_p"]) == (5, (6, 32))
     text = capsys.readouterr().out
     assert "== DTU cube seed 7 == points 100.0% of JAX's (+0.0%)" in text
     assert "DTU cube seed 7 == (recorded)" not in text
@@ -265,3 +327,46 @@ def test_run_fails_on_a_missing_report_and_without_a_card(tmp_path, capsys):
         "failed (no report")
     assert state["suite"]["Replica:cube:3"]["state"] == "done"
     assert _suite(tmp_path, "Replica:cube:3", n_cards=0) == 2
+
+
+def _port_table(root, name, rows):
+    """A port report whose selector table has the given (threshold, points)
+    rows, one a fit draw, the first picked."""
+    os.makedirs(root / name)
+    cands = [{"udf_threshold": t, "n_points": n} for t, n in rows]
+    cands[0]["picked"] = True
+    (root / name / "report.json").write_text(json.dumps({
+        "score": {"fscore_0.005": 0.4, "fscore_0.01": 0.9,
+                  "precision_0.005": 0.3, "recall_0.005": 0.5,
+                  "n_lines": 60, "n_curves": 30},
+        "threshold_selection": {"picked": rows[0][0], "candidates": cands}}))
+
+
+# JAX's pick and its fit draws' mean points there: rings seed 7 at 0.02
+# (3839, 3895, 3836, 4185) and the cube's seed 7 at 0.03 (3404, 3313,
+# 3119, 3416); the cube's seed 99 left no table
+@pytest.mark.parametrize("obj,seed,rows,jax_mean", [
+    ("rings", 7, [(0.03, 4400), (0.02, 3500), (0.02, 3700)], 3938.75),
+    ("cube", 7, [(0.03, 3500), (0.03, 3600), (0.04, 5000)], 3313.0),
+    ("cube", 99, [(0.02, 3000)], None)])
+def test_compare_holds_points_at_the_jax_pick(tmp_path, capsys, obj, seed,
+                                              rows, jax_mean):
+    """Points at JAX's picked threshold, each side the mean over its fit
+    draws there, so that a pick that differs does not count as an excess
+    of points; pooled in a row of their own."""
+    _port_table(tmp_path, f"ABC_{obj}_s{seed}", rows)
+    out = suite.compare(str(tmp_path))
+    text = capsys.readouterr().out
+    if jax_mean is None:
+        assert "pooled_same_threshold" not in out
+        assert "at JAX's pick" not in text
+        return
+    thr = suite.jax_run("ABC", obj, seed)["summary"]["picked"]
+    port = statistics.fmean(n for t, n in rows if t == thr)
+    pct = 100.0 * port / jax_mean
+    row = out["pooled_same_threshold"]
+    assert row["pct"] == pytest.approx({f"ABC:{obj}:{seed}": pct})
+    assert (row["n"], row["above"]) == (1, int(pct > 100))
+    assert (f"at JAX's pick {thr:g}, mean of the fit draws: port "
+            f"{port:.1f} points, JAX {jax_mean:.1f} ({pct:.1f}%)") in text
+    assert "pooled points at JAX's pick, mean of the fit draws, over 1 " in text
